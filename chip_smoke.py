@@ -7,17 +7,26 @@ Phases, each printed as it runs; any failure raises and ends the run:
   1. environment: the card (nvidia-smi name and power limit), versions,
      the TF32 flags (must be off);
   2. build every hand-written kernel from mve_tpu_torch/csrc with nvcc;
-  3. the top-2 kernel against its plain PyTorch version on the card, on
-     exact, ragged, single-reference, tied, D=64 and batched-pair inputs,
-     in float32 and bf16 under one rule, which must also reject a kernel
-     run in the other precision; then timed beside the plain version and
-     torch.topk(q @ r.T, 2) at 8192 x 8192 x 128;
+     ptxas must report 0 spill bytes, and the top-2 library's machine
+     code must hold tensor-core (HGMMA) and TMA (UTMALDG) instructions;
+  3. the top-2 kernels against their plain PyTorch versions on the card:
+     the split pre-pass bit for bit; the product on exact, ragged,
+     single-reference, tied, D=64 and batched-pair inputs, in float32 and
+     bf16 under one rule, which must also reject a kernel run in the
+     other precision, and in float32 against the emulated 3xTF32 scheme
+     too; both matching directions bit for bit on mutual pairs; then
+     timed beside the plain version and torch.topk(q @ r.T, 2) at
+     8192 x 8192 x 128, and alone at the per-pair matcher's sizes;
   4. sfm_reconstruct(skip_sfm=True) on a small scene on the card and on
-     the CPU: the two prebundles must agree;
+     the CPU: the two prebundles must agree; and the per-pair matcher on
+     that scene's features, card against CPU;
   5. sfm_reconstruct(skip_sfm=True) on 40 views of 1600 x 1200 (the
      main path), with the launch counts read around it;
-  6. the kernel at every one of the main path's own inputs: held against
-     the plain version and timed.
+  6. the kernels at every one of the main path's own inputs: held against
+     the plain version and timed beside it and a masked
+     torch.topk(torch.bmm(...), 2); each pass's two directions bit for
+     bit on mutual pairs; the matcher's mutual-match targets through the
+     kernel against those through the plain version.
 It prints one JSON line describing every kernel, and as its last line
 {"ok": true, "device": {...}}. It exits non-zero without a result when
 CUDA is unavailable. Scenes are written under build/chip_smoke/.
@@ -26,6 +35,7 @@ CUDA is unavailable. Scenes are written under build/chip_smoke/.
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -39,15 +49,18 @@ import mve_tpu_torch
 from mve_tpu_torch import synthetic
 from mve_tpu_torch.apps import sfmrecon
 from mve_tpu_torch.ops import cuda_build, top2 as top2_mod
-from mve_tpu_torch.ops.matching import descriptor_top2, descriptor_top2_pairs
+from mve_tpu_torch.ops.matching import descriptor_top2, descriptor_top2_pairs, split_tf32
 from mve_tpu_torch.sfm.bundler import matching_batched
-from mve_tpu_torch.sfm.bundler.common import load_prebundle
+from mve_tpu_torch.sfm.bundler.common import Viewport, load_prebundle
+from mve_tpu_torch.sfm.bundler.features import Features
+from mve_tpu_torch.sfm.bundler.matching import Matching
 
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W).
 PEAK_F32_FLOPS = 67e12       # CUDA cores
+PEAK_TF32_FLOPS = 495e12     # tensor cores
 PEAK_BF16_FLOPS = 989e12     # tensor cores
 PEAK_BYTES = 3.35e12         # HBM3
 
@@ -78,6 +91,32 @@ def cuda_ms(fn, reps):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def top2_bound(flops, nbytes, bf16):
+    """(bound ms, bound_by, CUDA-core ms) of the top-2 product. float32 is
+    three TF32 tensor-core products (the fewest that keep float32 parity),
+    bf16 one bf16 product; the CUDA-core figure is float32 FMA at 67
+    TFLOP/s, the bound of a kernel that leaves the tensor cores unused."""
+    ops = flops / PEAK_BF16_FLOPS if bf16 else 3 * flops / PEAK_TF32_FLOPS
+    by = "operations" if ops >= nbytes / PEAK_BYTES else "bytes"
+    return 1e3 * max(ops, nbytes / PEAK_BYTES), by, 1e3 * flops / PEAK_F32_FLOPS
+
+
+def library_top2_pairs(desc, n_desc, pair_a, pair_b, bf16):
+    """The yardstick at the pair inputs: masked torch.topk(torch.bmm(...), 2)
+    over chunks of pairs. Timed only; the port never calls it."""
+    V, N, D = desc.shape
+    x = desc.to(torch.bfloat16) if bf16 else desc
+    cols = torch.arange(N, device=desc.device)
+    chunk = max(1, (1 << 31) // max(N * N * x.element_size(), 1))
+    out = []
+    for c0 in range(0, len(pair_a), chunk):
+        a, b = pair_a[c0:c0 + chunk].long(), pair_b[c0:c0 + chunk].long()
+        scores = torch.bmm(x[a], x[b].mT)
+        scores.masked_fill_(cols[None, None, :] >= n_desc[b].long()[:, None, None], -math.inf)
+        out.append(torch.topk(scores, 2, dim=2))
+    return out
 
 
 def unit_desc(rng, n, d, dev):
@@ -122,9 +161,39 @@ def compare(name, got, want, bf16):
     return err
 
 
+def check_split(x):
+    """The split kernel against its plain version, bit for bit. Returns 0.0
+    (the largest difference) or raises."""
+    (hi, lo, _), _ = top2_mod.split(x, None, False)
+    phi, plo = split_tf32(x)
+    (b, _, _), _ = top2_mod.split(x, None, True)
+    err = max(float((hi - phi).abs().max()), float((lo - plo).abs().max()),
+              float((b.float() - x.to(torch.bfloat16).float()).abs().max()))
+    if err != 0.0:
+        raise AssertionError(f"split kernel differs from its plain version by {err}")
+    return err
+
+
+def check_symmetry(name, ab, ba, bf16):
+    """ab and ba: (idx, dist1, dist2), each (P, N), of the same pairs in
+    the two directions. The kernel computes dot(a, b) with the same bits
+    whichever is the query (csrc/top2.cu), so on every mutual pair i <-> j
+    dist1 must be bit-identical both ways; raises if any is not."""
+    (i12, d12, _), (i21, d21, _) = ab, ba
+    j = i12.long()
+    mutual = torch.gather(i21.long(), 1, j) == torch.arange(j.shape[1], device=j.device)[None, :]
+    n, same = int(mutual.sum()), int((mutual & (d12 == torch.gather(d21, 1, j))).sum())
+    print(f"  symmetry {name:<25} {'bf16' if bf16 else 'f32 '}  {n} mutual pairs, {same} "
+          f"with bit-identical dist1 in both directions", flush=True)
+    if same != n:
+        raise AssertionError(f"top2 {name}: the two directions differ on a mutual pair")
+
+
 def phase_kernel_checks(dev):
     rng = np.random.RandomState(0)
-    errs = []
+    errs = [check_split(unit_desc(rng, 4096, 128, dev))]
+    print("  split kernel                        bit-identical to split_tf32 and "
+          "Tensor.to(bfloat16)", flush=True)
     cases = [("exact tiles 1024x512 D128", 1024, 512, 128),
              ("ragged 37x91 D128", 37, 91, 128),
              ("ragged 300x700 D128", 300, 700, 128),
@@ -134,8 +203,11 @@ def phase_kernel_checks(dev):
     for name, n1, n2, d in cases:
         q, r = unit_desc(rng, n1, d, dev), unit_desc(rng, n2, d, dev)
         for bf16 in (False, True):
-            errs.append(compare(name, top2_mod.top2(q, r, n2, bf16),
-                                descriptor_top2(q, r, n_refs=n2, use_bf16=bf16), bf16))
+            got = top2_mod.top2(q, r, n2, bf16)
+            errs.append(compare(name, got, descriptor_top2(q, r, n_refs=n2, use_bf16=bf16), bf16))
+            if not bf16:
+                compare("  against emulated 3xTF32", got,
+                        descriptor_top2(q, r, n_refs=n2, use_3xtf32=True), bf16)
     # The rule must fail a kernel run in the other precision.
     q, r = unit_desc(rng, 1024, 128, dev), unit_desc(rng, 512, 128, dev)
     for bf16 in (False, True):
@@ -168,6 +240,7 @@ def phase_kernel_checks(dev):
         pa = torch.tensor([a for a, _ in pairs], dtype=torch.int32, device=dev)
         pb = torch.tensor([b for _, b in pairs], dtype=torch.int32, device=dev)
         for bf16 in (False, True):
+            both = []
             for name, x, y in (("pairs V=6 N=2048 a->b D%d" % d, pa, pb),
                                ("pairs V=6 N=2048 b->a D%d" % d, pb, pa)):
                 got = top2_mod.top2_pairs(desc, n_desc, x, y, bf16)
@@ -176,6 +249,20 @@ def phase_kernel_checks(dev):
                 rows = torch.arange(N, device=dev)[None, :] < n_desc[x.long()][:, None]
                 errs.append(compare(name, tuple(t[rows] for t in got),
                                     tuple(t[rows] for t in want), bf16))
+                both.append(got)
+            check_symmetry(f"pairs V=6 N=2048 D{d}", *both, bf16)
+    # One query set against one reference set (a smaller grid than the
+    # pairs above, which top2_launch may give fewer warpgroups a block);
+    # r is q permuted plus noise, so most rows are mutual.
+    n = 3000
+    for d in (128, 64):
+        q = unit_desc(rng, n, d, dev)
+        r = q[torch.from_numpy(rng.permutation(n)).to(dev)] + 0.05 * unit_desc(rng, n, d, dev)
+        r = (r / r.norm(dim=1, keepdim=True)).contiguous()
+        for bf16 in (False, True):
+            ab, ba = (tuple(t[None] for t in top2_mod.top2(x, y, n, bf16))
+                      for x, y in ((q, r), (r, q)))
+            check_symmetry(f"{n}x{n} D{d}", ab, ba, bf16)
     torch.cuda.synchronize()
     return max(errs)
 
@@ -188,17 +275,32 @@ def phase_kernel_timing(dev):
     out = {}
     for bf16 in (False, True):
         qq, rr = (q.to(torch.bfloat16), r.to(torch.bfloat16)) if bf16 else (q, r)
-        kernel = cuda_ms(lambda: top2_mod.top2(q, r, n, bf16), 20)
+        qo, ro = top2_mod.split(q, r, bf16)
+        call = cuda_ms(lambda: top2_mod.top2(q, r, n, bf16), 20)
+        product = cuda_ms(lambda: top2_mod.top2_on(qo, ro, n), 20)
+        split = cuda_ms(lambda: top2_mod.split(q, r, bf16), 20)
         plain = cuda_ms(lambda: descriptor_top2(q, r, n_refs=n, use_bf16=bf16), 20)
         library = cuda_ms(lambda: torch.topk(qq @ rr.T, 2, dim=1), 20)
-        peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
-        bound = 1e3 * max(flops / peak, (2 * n * d * 4 + n * 12) / PEAK_BYTES)
+        bound, _, core = top2_bound(flops, 2 * n * d * 4 + n * 12, bf16)
         tag = "bf16" if bf16 else "f32"
-        out[tag] = dict(ms=kernel, plain_ms=plain, library_ms=library, bound_ms=bound)
-        print(f"  8192x8192x128 {tag}: kernel {kernel:.4f} ms ({flops / kernel / 1e9:.2f} TFLOP/s), "
-              f"plain {plain:.4f} ms ({flops / plain / 1e9:.2f}), "
-              f"torch.topk(q@r.T,2) {library:.4f} ms ({flops / library / 1e9:.2f}), "
-              f"bound {bound:.4f} ms", flush=True)
+        out[tag] = dict(ms=call, product_ms=product, split_ms=split, plain_ms=plain,
+                        library_ms=library, bound_ms=bound)
+        print(f"  8192x8192x128 {tag}: kernels {call:.4f} ms ({flops / call / 1e9:.2f} TFLOP/s; "
+              f"product {product:.4f} ms, split {split:.4f} ms), plain {plain:.4f} ms "
+              f"({flops / plain / 1e9:.2f}), torch.topk(q@r.T,2) {library:.4f} ms "
+              f"({flops / library / 1e9:.2f}), bound {bound:.4f} ms "
+              f"({'1 bf16' if bf16 else '3 TF32'} tensor-core products; float32 on the CUDA "
+              f"cores {core:.4f} ms)", flush=True)
+    # The per-pair matcher's calls at the main path's largest views: SIFT
+    # (2974 rows, bf16) and SURF (2138 rows, 64-D, float32).
+    for n, d, bf16 in ((2974, 128, True), (2138, 64, False)):
+        q, r = unit_desc(rng, n, d, dev), unit_desc(rng, n, d, dev)
+        qo, ro = top2_mod.split(q, r, bf16)
+        product = cuda_ms(lambda: top2_mod.top2_on(qo, ro, n), 20)
+        flops = 2.0 * n * n * d
+        bound, _, _ = top2_bound(flops, 2 * n * d * 4 + n * 12, bf16)
+        print(f"  per-pair {n}x{n}x{d} {'bf16' if bf16 else 'f32'}: product {product:.4f} ms "
+              f"({flops / product / 1e9:.2f} TFLOP/s), bound {bound:.4f} ms", flush=True)
     return out
 
 
@@ -244,6 +346,34 @@ def phase_card_vs_cpu():
             raise AssertionError(f"pair {key}: match reproduction {rate:.4f} < 0.95")
     shutil.rmtree(base, ignore_errors=True)
 
+    # The per-pair matcher (bundler.Matching: ops/top2.top2 per pair, bf16
+    # for 128-D SIFT and float32 for 64-D SURF on the card) on the same
+    # features, card against CPU. The images are the scene's own.
+    tex_far = synthetic.make_texture(seed=7, smooth_sigma=3.0)
+    tex_near = synthetic.make_texture(seed=107, smooth_sigma=3.0)
+    imgs = [synthetic.render_two_plane_view(tex_far, tex_near, cam, 480, 360)
+            for cam in synthetic.make_cameras(4, spread=0.55, seed=7)]
+    vps = [Viewport() for _ in imgs]
+    Features(device="cuda").compute_batched(imgs, vps)
+    found = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        found[dev] = {(m.view_1_id, m.view_2_id): m.matches
+                      for m in Matching(device=dev).compute(vps, seed=0)}
+        print(f"  per-pair matcher, {dev}: {time.perf_counter() - t0:.3f} s, "
+              f"{len(found[dev])} pairs", flush=True)
+    if set(found["cuda"]) != set(found["cpu"]):
+        raise AssertionError(f"per-pair matcher: connected pairs differ: cuda "
+                             f"{sorted(found['cuda'])} cpu {sorted(found['cpu'])}")
+    for key, c in sorted(found["cpu"].items()):
+        want = set(map(tuple, c))
+        got = set(map(tuple, found["cuda"][key]))
+        rate = len(got & want) / max(len(want), 1)
+        print(f"  per-pair pair {key}: cpu {len(want)} / cuda {len(got)} matches, "
+              f"reproduced {rate:.4f} (>=0.95)", flush=True)
+        if rate < 0.95:
+            raise AssertionError(f"per-pair pair {key}: match reproduction {rate:.4f} < 0.95")
+
 
 class _Recorder:
     """Wraps matching_batched.top2_pairs to keep the inputs of every call;
@@ -271,7 +401,7 @@ def phase_main_path():
     matching_batched.top2_pairs = recorder
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    top2_mod.launches = 0
+    top2_mod.launches = top2_mod.split_launches = 0
     t0 = time.perf_counter()
     try:
         sfmrecon.sfm_reconstruct(str(scene), skip_sfm=True, verbose=False, device="cuda")
@@ -279,7 +409,7 @@ def phase_main_path():
     finally:
         matching_batched.top2_pairs = recorder.fn
     wall = time.perf_counter() - t0
-    launches = top2_mod.launches
+    launches, split_launches = top2_mod.launches, top2_mod.split_launches
     peak = torch.cuda.max_memory_allocated()
     t = dict(sfmrecon.LAST_TIMINGS)
     print(f"  sfm_reconstruct(skip_sfm=True, device='cuda'): {wall:.3f} s", flush=True)
@@ -289,11 +419,12 @@ def phase_main_path():
     print(f"  sift bucket {t.get('sift_bucket')}, surf bucket {t.get('surf_bucket')}, "
           f"pairs {t.get('n_pairs')} -> low-res {t.get('n_lowres_pairs')} -> "
           f"ransac {t.get('n_ransac_pairs')} -> connected {t.get('n_connected_pairs')}", flush=True)
-    print(f"  max_memory_allocated {peak} bytes, top2.launches {launches}", flush=True)
+    print(f"  max_memory_allocated {peak} bytes, top2.launches {launches}, "
+          f"top2.split_launches {split_launches}", flush=True)
     print("  top2_pairs calls (desc shape, pairs, bf16): "
           f"{[(tuple(c[0].shape), len(c[2]), c[4]) for c in recorder.calls]}", flush=True)
-    if launches <= 0:
-        raise AssertionError("the main path launched the top2 kernel no time")
+    if launches <= 0 or split_launches <= 0:
+        raise AssertionError("the main path launched a top2 kernel no time")
 
     vps, matching = load_scene_result(str(scene))
     if len(vps) != views:
@@ -311,37 +442,96 @@ def phase_main_path():
     if len(connected) != views:
         raise AssertionError(f"only {len(connected)} of {views} views are in a connected pair")
     shutil.rmtree(scene, ignore_errors=True)
-    return dict(launches=launches, peak=peak, timings=t, wall=wall), recorder.calls
+    return (dict(launches=launches, split_launches=split_launches, peak=peak, timings=t,
+                 wall=wall), recorder.calls)
 
 
 def phase_main_path_kernel(calls):
     """Every top2_pairs call of the main path, on its own inputs: held
-    against the plain version, then timed. The totals are the kernel's
-    work in one main-path run."""
-    err = ms = plain_ms = flops = nbytes = 0.0
+    against the plain version, then timed, the product and the split
+    apart, beside the plain version and the library yardstick. The totals
+    are the kernels' work in one main-path run."""
+    tot = dict(err=0.0, ms=0.0, split_ms=0.0, plain_ms=0.0, split_plain_ms=0.0,
+               library_ms=0.0, flops=0.0, nbytes=0.0, split_bytes=0.0)
+    split_err = 0.0
+    results = []
     for desc, n_desc, pair_a, pair_b, bf16 in calls:
         V, N, D = desc.shape
         got = top2_mod.top2_pairs(desc, n_desc, pair_a, pair_b, bf16)
+        results.append(got)
         want = descriptor_top2_pairs(desc, n_desc, pair_a, pair_b, use_bf16=bf16)
         rows = torch.arange(N, device=desc.device)[None, :] < n_desc[pair_a.long()][:, None]
-        err = max(err, compare(f"main path desc {V}x{N}x{D}, {len(pair_a)} pairs",
-                               tuple(t[rows] for t in got), tuple(t[rows] for t in want), bf16))
-        call_ms = cuda_ms(lambda: top2_mod.top2_pairs(desc, n_desc, pair_a, pair_b, bf16), 5)
+        tot["err"] = max(tot["err"], compare(
+            f"main path desc {V}x{N}x{D}, {len(pair_a)} pairs",
+            tuple(t[rows] for t in got), tuple(t[rows] for t in want), bf16))
+        split_err = max(split_err, check_split(desc))
+        ops, _ = top2_mod.split(desc, None, bf16)
+        call_ms = cuda_ms(lambda: top2_mod.top2_pairs_on(ops, n_desc, pair_a, pair_b), 5)
+        call_split = cuda_ms(lambda: top2_mod.split(desc, None, bf16), 5)
         call_plain = cuda_ms(
             lambda: descriptor_top2_pairs(desc, n_desc, pair_a, pair_b, use_bf16=bf16), 2)
+        call_split_plain = cuda_ms(lambda: split_tf32(desc), 5)
+        call_library = cuda_ms(lambda: library_top2_pairs(desc, n_desc, pair_a, pair_b, bf16), 2)
         na = n_desc[pair_a.long()].double()
         nb = n_desc[pair_b.long()].double()
         call_flops = float(2.0 * D * (na * nb).sum())     # real rows x real columns
-        print(f"    kernel {call_ms:.4f} ms ({call_flops / call_ms / 1e9:.2f} TFLOP/s on "
-              f"real rows), plain {call_plain:.4f} ms", flush=True)
-        ms, plain_ms, flops = ms + call_ms, plain_ms + call_plain, flops + call_flops
-        nbytes += V * N * D * 4 + len(pair_a) * N * 12
-    peak = PEAK_BF16_FLOPS if any(c[4] for c in calls) else PEAK_F32_FLOPS
-    bound_by = "operations" if flops / peak >= nbytes / PEAK_BYTES else "bytes"
-    bound = 1e3 * max(flops / peak, nbytes / PEAK_BYTES)
-    print(f"  all {len(calls)} calls: kernel {ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s on "
-          f"real rows), plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by})", flush=True)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
+        print(f"    product {call_ms:.4f} ms ({call_flops / call_ms / 1e9:.2f} TFLOP/s on "
+              f"real rows), split {call_split:.4f} ms, plain {call_plain:.4f} ms, "
+              f"split_tf32 {call_split_plain:.4f} ms, masked torch.topk(torch.bmm) "
+              f"{call_library:.4f} ms", flush=True)
+        for k, v in (("ms", call_ms), ("split_ms", call_split), ("plain_ms", call_plain),
+                     ("split_plain_ms", call_split_plain), ("library_ms", call_library),
+                     ("flops", call_flops), ("nbytes", V * N * D * 4 + len(pair_a) * N * 12),
+                     ("split_bytes", V * N * D * (4 + (2 if bf16 else 8)))):
+            tot[k] += v
+    # Each pass is two calls, a->b then b->a (matching_batched._match_pairs).
+    for k in range(0, len(calls) - 1, 2):
+        desc, _, pair_a, pair_b, bf16 = calls[k]
+        if not (torch.equal(calls[k + 1][2], pair_b) and torch.equal(calls[k + 1][3], pair_a)):
+            raise AssertionError("main path: calls do not come in a->b, b->a order")
+        V, N, D = desc.shape
+        check_symmetry(f"main path {V}x{N}x{D}", results[k], results[k + 1], bf16)
+    bf16 = any(c[4] for c in calls)
+    bound, bound_by, core = top2_bound(tot["flops"], tot["nbytes"], bf16)
+    split_bound = 1e3 * tot["split_bytes"] / PEAK_BYTES
+    print(f"  all {len(calls)} calls: product {tot['ms']:.4f} ms ({tot['flops'] / tot['ms'] / 1e9:.2f} "
+          f"TFLOP/s on real rows), plain {tot['plain_ms']:.4f} ms, masked torch.topk(torch.bmm) "
+          f"{tot['library_ms']:.4f} ms, bound {bound:.4f} ms ({bound_by}; 3 TF32 tensor-core "
+          f"products; float32 on the CUDA cores {core:.4f} ms)", flush=True)
+    print(f"  split: {tot['split_ms']:.4f} ms, split_tf32 {tot['split_plain_ms']:.4f} ms, "
+          f"bound {split_bound:.4f} ms (bytes)", flush=True)
+    return (dict(max_abs_err=tot["err"], ms=tot["ms"], plain_ms=tot["plain_ms"],
+                 bound_ms=bound, bound_by=bound_by, library_ms=tot["library_ms"]),
+            dict(max_abs_err=split_err, ms=tot["split_ms"], plain_ms=tot["split_plain_ms"],
+                 bound_ms=split_bound, bound_by="bytes", library_ms=None))
+
+
+def phase_mutual_matches(calls):
+    """matching_batched._match_pairs (Lowe ratio and the mutual check over
+    both directions) at the main path's three passes, through the kernel
+    and through the plain version: the share of real query rows whose
+    mutual-match target (or none) is the same."""
+    plain = lambda desc, n_desc, pa, pb, bf16: descriptor_top2_pairs(desc, n_desc, pa, pb,
+                                                                     use_bf16=bf16)
+    worst = 1.0
+    for desc, n_desc, pair_a, pair_b, _ in calls[0::2]:    # the a->b call of each pass
+        V, N, D = desc.shape
+        lowe_sq = (0.7 if D == 64 else 0.8) ** 2
+        got = matching_batched._match_pairs(desc, n_desc, pair_a, pair_b, lowe_sq)
+        matching_batched.top2_pairs = plain
+        try:
+            want = matching_batched._match_pairs(desc, n_desc, pair_a, pair_b, lowe_sq)
+        finally:
+            matching_batched.top2_pairs = top2_mod.top2_pairs
+        rows = torch.arange(N, device=desc.device)[None, :] < n_desc[pair_a.long()][:, None]
+        same = int((got == want)[rows].sum()) / int(rows.sum())
+        worst = min(worst, same)
+        print(f"  _match_pairs desc {V}x{N}x{D}: {int((got >= 0).sum())} mutual matches "
+              f"through the kernel, {int((want >= 0).sum())} through the plain version; "
+              f"{same:.6f} of targets identical (>=0.999)", flush=True)
+        if same < 0.999:
+            raise AssertionError(f"mutual-match targets agree on {same:.6f} < 0.999")
+    return worst
 
 
 def main() -> int:
@@ -362,11 +552,21 @@ def main() -> int:
 
     phase("2. build")
     t0 = time.perf_counter()
-    logs = cuda_build.build(["top2"])
-    print(f"  built {sorted(logs) or 'nothing (up to date)'} in {time.perf_counter() - t0:.3f} s")
+    logs = cuda_build.build(["top2"], force=True)
+    print(f"  built {sorted(logs)} in {time.perf_counter() - t0:.3f} s")
     for name, log in logs.items():
         for line in log.strip().splitlines():
             print(f"  [{name}] {line}")
+        spills = [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", log)]
+        print(f"  [{name}] spill bytes over all kernels: {sum(spills)}")
+        if not spills or any(spills):
+            raise AssertionError(f"{name}: ptxas reports spills (or no report)")
+    sass = cuda_build.sass("top2").splitlines()
+    counts = {op: sum(op in line for line in sass) for op in ("HGMMA", "UTMALDG")}
+    print(f"  [top2] SASS: {counts['HGMMA']} HGMMA (wgmma), {counts['UTMALDG']} UTMALDG "
+          f"(TMA loads)", flush=True)
+    if not all(counts.values()):
+        raise AssertionError("top2: no tensor-core or no TMA instruction in the machine code")
 
     phase("3. top2 kernel against its plain version")
     check_err = phase_kernel_checks(dev)
@@ -380,16 +580,18 @@ def main() -> int:
     main_run, calls = phase_main_path()
 
     phase("6. top2 at the main path's inputs")
-    at_main = phase_main_path_kernel(calls)
+    at_main, split_at_main = phase_main_path_kernel(calls)
+    mutual_same = phase_mutual_matches(calls)
 
-    kernels = [{
-        "name": "top2", "route": "cuda", "source": "mve_tpu_torch/csrc/top2.cu",
-        "replaces": "mve_tpu/ops/pallas_matching.py:27",
-        "launches": main_run["launches"], "max_abs_err": max(at_main["max_abs_err"], check_err),
-        "ms": at_main["ms"], "plain_ms": at_main["plain_ms"], "bound_ms": at_main["bound_ms"],
-        "bound_by": at_main["bound_by"], "library_ms": None,
-        "yardstick_8192x8192x128": yard,
-    }]
+    replaces = "mve_tpu/ops/pallas_matching.py:27"
+    kernels = [
+        {"name": "top2", "route": "cuda", "source": "mve_tpu_torch/csrc/top2.cu",
+         "replaces": replaces, "launches": main_run["launches"],
+         **at_main, "max_abs_err": max(at_main["max_abs_err"], check_err),
+         "mutual_targets_identical": mutual_same, "yardstick_8192x8192x128": yard},
+        {"name": "top2_split", "route": "cuda", "source": "mve_tpu_torch/csrc/top2.cu",
+         "replaces": replaces, "launches": main_run["split_launches"], **split_at_main},
+    ]
     print()
     print(smi)
     print(json.dumps({"kernels": kernels}))

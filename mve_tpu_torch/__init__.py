@@ -2,8 +2,9 @@
 
 The package mirrors mve_tpu's layout so each module's counterpart is easy
 to find (core/, sfm/, sfm/bundler/, ops/, apps/, utils/). Plain tensor
-code is PyTorch; the one hand-written kernel so far is the fused
-descriptor top-2 search in csrc/top2.cu (bound in ops/top2.py).
+code is PyTorch; the hand-written kernels so far are the fused
+descriptor top-2 search in csrc/top2.cu, a split pre-pass and a
+tensor-core product (bound in ops/top2.py).
 
 Nothing here imports jax or mve_tpu. Entry points take ``device=`` and
 default to ``"cuda"``; they raise when CUDA is absent unless the caller

@@ -24,12 +24,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
-    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-                 shutil.which("nvcc")):
+def _cuda_tool(tool: str) -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", tool),
+                 shutil.which(tool)):
         if cand and os.path.isfile(cand):
             return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+    raise RuntimeError(f"{tool} not found (set CUDA_HOME or put {tool} on PATH)")
 
 
 def library_path(name: str) -> Path:
@@ -38,20 +38,21 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
-def build(names: Iterable[str]) -> Dict[str, str]:
-    """Compile every named source that has no current library, one nvcc
-    process per source, all started together. Returns each build's
-    compiler output (ptxas register/shared-memory report); raises with
-    the compiler's output if any build fails."""
+def build(names: Iterable[str], force: bool = False) -> Dict[str, str]:
+    """Compile every named source that has no current library (every one
+    with force), one nvcc process per source, all started together.
+    Returns each build's compiler output (ptxas register, shared-memory
+    and spill report); raises with the compiler's output if any build
+    fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
         out = library_path(name)
-        if out.is_file():
+        if out.is_file() and not force:
             continue
         tmp = out.with_suffix(f".tmp{os.getpid()}")
         procs[name] = (subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")],
+            [_cuda_tool("nvcc"), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, out)
     logs = {}
     for name, (proc, tmp, out) in procs.items():
@@ -70,3 +71,11 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return lib
+
+
+def sass(name: str) -> str:
+    """The machine code of csrc/<name>.cu's library, as cuobjdump -sass
+    prints it (built first if needed)."""
+    load(name)
+    return subprocess.run([_cuda_tool("cuobjdump"), "-sass", str(library_path(name))],
+                          capture_output=True, text=True, check=True).stdout

@@ -17,13 +17,38 @@ import math
 import torch
 
 
-def _scores(query, refs, use_bf16: bool):
+def split_tf32(x):
+    """float32 x -> (hi, lo), the 3xTF32 operands: hi is x rounded to TF32
+    (10 explicit mantissa bits) to nearest with ties away from zero, as
+    cvt.rna.tf32.f32 rounds, and lo is x - hi rounded the same way; the
+    low 13 bits of both are zero and hi + lo is x within 2^-21 relative.
+    The plain version of the split kernel in csrc/top2.cu."""
+
+    def rna(v):
+        # Sign-magnitude bits: adding half an ulp rounds the magnitude.
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def _scores(query, refs, use_bf16: bool, use_3xtf32: bool = False):
+    t = lambda m: m.transpose(-1, -2)
+    if use_3xtf32:
+        # The kernel's float32 scheme: three TF32 products, each exact in
+        # float32, the two cross terms added first (lo.lo is dropped).
+        if use_bf16:
+            raise ValueError("use_bf16 and use_3xtf32 exclude each other")
+        qh, ql = split_tf32(query)
+        rh, rl = split_tf32(refs)
+        return torch.matmul(qh, t(rh)) + (torch.matmul(qh, t(rl)) + torch.matmul(ql, t(rh)))
     if use_bf16:
         # bf16 inputs, float32 accumulation: bf16 products are exact in
         # float32, so rounding the inputs and multiplying in float32 is it.
         query = query.to(torch.bfloat16).to(torch.float32)
         refs = refs.to(torch.bfloat16).to(torch.float32)
-    return torch.matmul(query, refs.transpose(-1, -2))
+    return torch.matmul(query, t(refs))
 
 
 def _top2_rows(scores):
@@ -41,7 +66,8 @@ def _top2_rows(scores):
     return idx1, best, second
 
 
-def descriptor_top2(query, refs, n_query=None, n_refs=None, use_bf16: bool = False):
+def descriptor_top2(query, refs, n_query=None, n_refs=None, use_bf16: bool = False,
+                    use_3xtf32: bool = False):
     """Top-2 nearest neighbours by max inner product.
 
     query: (N1, D), refs: (N2, D); reference rows at or past n_refs are
@@ -49,8 +75,10 @@ def descriptor_top2(query, refs, n_query=None, n_refs=None, use_bf16: bool = Fal
     padded query rows are computed and left to the caller).
     Returns (idx1 int32, dist1, dist2): best index and the squared L2
     distances of best and second best (dist^2 = 2 - 2 dot).
+    use_3xtf32 emulates the CUDA kernel's float32 scheme (split_tf32); it
+    is for tests and chip_smoke.py, never the pipeline.
     """
-    scores = _scores(query, refs, use_bf16)
+    scores = _scores(query, refs, use_bf16, use_3xtf32)
     if n_refs is not None:
         col_ok = torch.arange(refs.shape[0], device=refs.device) < n_refs
         scores = torch.where(col_ok[None, :], scores, -math.inf)
@@ -62,7 +90,8 @@ def descriptor_top2(query, refs, n_query=None, n_refs=None, use_bf16: bool = Fal
 _PAIR_SCORE_BYTES = 1 << 29
 
 
-def descriptor_top2_pairs(desc, n_desc, pair_a, pair_b, use_bf16: bool = False):
+def descriptor_top2_pairs(desc, n_desc, pair_a, pair_b, use_bf16: bool = False,
+                          use_3xtf32: bool = False):
     """descriptor_top2 for every pair p: desc[pair_a[p]] against
     desc[pair_b[p]], reference rows masked at n_desc[pair_b[p]].
 
@@ -79,7 +108,7 @@ def descriptor_top2_pairs(desc, n_desc, pair_a, pair_b, use_bf16: bool = False):
     for c0 in range(0, P, chunk):
         pa = pair_a[c0:c0 + chunk].long()
         pb = pair_b[c0:c0 + chunk].long()
-        scores = _scores(desc[pa], desc[pb], use_bf16)          # (p, N, N)
+        scores = _scores(desc[pa], desc[pb], use_bf16, use_3xtf32)  # (p, N, N)
         col_ok = cols[None, :] < n_desc[pb].long()[:, None]
         scores = torch.where(col_ok[:, None, :], scores, -math.inf)
         i1, best, second = _top2_rows(scores)

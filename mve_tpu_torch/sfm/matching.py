@@ -4,13 +4,13 @@ mve_tpu/sfm/matching.py).
 
 oneway_match -> twoway_match -> remove_inconsistent_matches keep the
 reference's semantics. The nearest-neighbour search runs through
-ops/top2.top2: on a CUDA device the hand-written kernel in bf16 (as
-mve_tpu runs its Pallas kernel in bf16 on its accelerator), on the CPU
-the plain float32 version (mve_tpu's CPU path).
+ops/top2.top2: on a CUDA device the hand-written kernel, in bf16 where
+D % 128 == 0 and in float32 otherwise (mve_tpu sends only such widths to
+its bf16 Pallas kernel on its accelerator and scores 64-D SURF in
+float32), on the CPU the plain float32 version (mve_tpu's CPU path).
 
 Unlike mve_tpu's Pallas path, reference rows are masked by count on
-both devices, never seen as zero vectors; and 64-D SURF descriptors go
-through the kernel too.
+both devices, never seen as zero vectors.
 """
 
 from __future__ import annotations
@@ -40,6 +40,12 @@ class MatchingResult:
     matches_2_1: np.ndarray
 
 
+def use_bf16(device: torch.device, d: int) -> bool:
+    """bf16 scoring for width d on device: a CUDA device and d % 128 == 0,
+    as mve_tpu/sfm/matching.py:60 picks its bf16 Pallas kernel."""
+    return device.type == "cuda" and d % 128 == 0
+
+
 def oneway_match(opts: MatchingOptions, set1: np.ndarray, set2: np.ndarray,
                  device="cuda") -> np.ndarray:
     """Match each descriptor of set1 into set2 (matching.h:115-146)."""
@@ -49,7 +55,7 @@ def oneway_match(opts: MatchingOptions, set1: np.ndarray, set2: np.ndarray,
         return np.full(n1, -1, np.int32)
     q = torch.from_numpy(np.ascontiguousarray(set1, np.float32)).to(dev)
     r = torch.from_numpy(np.ascontiguousarray(set2, np.float32)).to(dev)
-    idx, d1, d2 = (t.cpu().numpy() for t in top2(q, r, n2, bf16=dev.type == "cuda"))
+    idx, d1, d2 = (t.cpu().numpy() for t in top2(q, r, n2, bf16=use_bf16(dev, q.shape[1])))
     sq_lowe = opts.lowe_ratio_threshold**2
     sq_dist = opts.distance_threshold**2 if np.isfinite(opts.distance_threshold) else np.inf
     ok = (d1 <= sq_dist) & (d1 / np.maximum(d2, 1e-30) <= sq_lowe)

@@ -25,6 +25,7 @@ from mve_tpu.sfm.ransac import _sample_indices as jax_sample_indices
 from mve_tpu_torch import interop, synthetic
 from mve_tpu_torch.sfm.bundler.matching import Matching, MatchingOptions
 from mve_tpu_torch.sfm.bundler.matching_batched import BatchedMatching
+from mve_tpu_torch.sfm.matching import use_bf16
 from mve_tpu_torch.sfm.ransac import _sample_indices
 
 # Test workers run side by side: one intra-op thread each keeps torch's
@@ -99,3 +100,12 @@ def test_interop_round_trip(jax_viewports, port_viewports):
     assert mopts.lowe_ratio == 0.7 and mopts.ransac_opts.threshold == 0.002
     with pytest.raises(ValueError):
         interop.options_from_dict({"matching": {"use_cascade_hashing": True}})
+
+
+@pytest.mark.parametrize("device,d,want", [("cuda", 128, True), ("cuda", 64, False),
+                                           ("cpu", 128, False), ("cpu", 64, False)])
+def test_per_pair_precision_choice(device, d, want):
+    """The per-pair matcher scores in bf16 only on a CUDA device and for
+    D % 128 == 0 (mve_tpu/sfm/matching.py:60); SURF's 64-D descriptors
+    stay float32. A device object is enough: nothing is launched."""
+    assert use_bf16(torch.device(device), d) is want

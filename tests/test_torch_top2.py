@@ -20,7 +20,7 @@ from mve_tpu.sfm.matching import _pad_rows
 
 import mve_tpu_torch
 from mve_tpu_torch.ops import top2 as top2_mod
-from mve_tpu_torch.ops.matching import descriptor_top2, descriptor_top2_pairs
+from mve_tpu_torch.ops.matching import descriptor_top2, descriptor_top2_pairs, split_tf32
 
 # Test workers run side by side: one intra-op thread each keeps torch's
 # OpenMP pool from oversubscribing the cores.
@@ -140,6 +140,80 @@ def test_top2_pairs_on_cpu_matches_jax_per_pair(d):
     got = top2_mod.top2_pairs(torch.from_numpy(desc), n_desc, pa, pb, bf16=False)
     for a, b in zip(got, plain):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def _assert_top2_close(got, ref):
+    """Indices identical outside near-ties of 1e-5 (where the reference's
+    best and runner-up are closer than that), distances within 1e-5."""
+    got = [np.asarray(a) for a in got]
+    ref = [np.asarray(a) for a in ref]
+    near_tie = (ref[2] - ref[1]) < 1e-5
+    assert not ((got[0] != ref[0]) & ~near_tie).any()
+    np.testing.assert_allclose(got[1], ref[1], atol=1e-5)
+    np.testing.assert_allclose(got[2], ref[2], atol=1e-5)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_split_tf32_parts(seed):
+    """hi and lo are TF32 (low 13 bits zero), hi is x to nearest with ties
+    away from zero, and hi + lo gives x back within 2^-21 relative."""
+    rng = np.random.RandomState(seed)
+    x = np.concatenate([rng.randn(4096), rng.rand(4096) * 1e-3,
+                        [1 + 2.0**-11, -(1 + 2.0**-11), 0.0, 1.0]]).astype(np.float32)
+    hi, lo = (t.numpy() for t in split_tf32(torch.from_numpy(x)))
+    for part in (hi, lo):
+        assert not (part.view(np.uint32) & 0x1FFF).any()
+    assert (np.abs(x - hi) <= np.abs(x) * 2.0**-11).all()
+    # Exact ties round away from zero.
+    assert hi[-4] == np.float32(1 + 2.0**-10) and hi[-3] == -np.float32(1 + 2.0**-10)
+    assert hi[-2] == 0.0 and lo[-2] == 0.0 and hi[-1] == 1.0 and lo[-1] == 0.0
+    err = np.abs((hi.astype(np.float64) + lo) - x)
+    assert (err <= np.abs(x) * 2.0**-21).all()
+
+
+@pytest.mark.parametrize("n1,n2", [(TM, TN), (37, 91), (300, 700), (TM + 1, TN - 1)])
+@pytest.mark.parametrize("d", [128, 64])
+def test_3xtf32_top2_matches_jax_f32(n1, n2, d):
+    """The kernel's float32 scheme, emulated on the CPU (use_3xtf32),
+    against mve_tpu's float32 descriptor_top2."""
+    q = _unit_descriptors(n1, d, seed=11)
+    r = _unit_descriptors(n2, d, seed=12)
+    ref = jax_top2(jnp.asarray(q), jnp.asarray(r), n_refs=n2)
+    got = descriptor_top2(torch.from_numpy(q), torch.from_numpy(r), n_refs=n2, use_3xtf32=True)
+    _assert_top2_close([t.numpy() for t in got], ref)
+
+
+@pytest.mark.parametrize("d", [128, 64])
+def test_3xtf32_top2_pairs_matches_f32(d):
+    """descriptor_top2_pairs(use_3xtf32=True) against mve_tpu's float32
+    descriptor_top2 run per pair with n_refs = the reference view's count,
+    both directions, on real query rows."""
+    V, N = 4, 150
+    counts = [150, 97, 1, 120]
+    desc = np.zeros((V, N, d), np.float32)
+    for v, n in enumerate(counts):
+        desc[v, :n] = _unit_descriptors(n, d, seed=30 + v)
+    pairs = [(a, b) for b in range(V) for a in range(b)]
+    pa = torch.tensor([a for a, _ in pairs], dtype=torch.int32)
+    pb = torch.tensor([b for _, b in pairs], dtype=torch.int32)
+    n_desc = torch.tensor(counts, dtype=torch.int32)
+    for x, y in ((pa, pb), (pb, pa)):
+        got = descriptor_top2_pairs(torch.from_numpy(desc), n_desc, x, y, use_3xtf32=True)
+        for k in range(len(pairs)):
+            a, b = int(x[k]), int(y[k])
+            ref = jax_top2(jnp.asarray(desc[a]), jnp.asarray(desc[b]), n_refs=counts[b])
+            rows = slice(0, counts[a])
+            _assert_top2_close([t[k, rows].numpy() for t in got],
+                               [np.asarray(t)[rows] for t in ref])
+
+
+def test_kernel_entry_points_refuse_cpu_tensors():
+    """split (and so top2_on / top2_pairs_on) runs the kernel or raises: a
+    CPU tensor is never split on the host behind the caller's back."""
+    before = top2_mod.split_launches
+    with pytest.raises(ValueError, match="CUDA"):
+        top2_mod.split(torch.zeros(4, 128))
+    assert top2_mod.split_launches == before
 
 
 def test_devices_must_agree_and_cuda_is_never_implied():
