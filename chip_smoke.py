@@ -26,7 +26,23 @@ Phases, each printed as it runs; any failure raises and ends the run:
      the plain version and timed beside it and a masked
      torch.topk(torch.bmm(...), 2); each pass's two directions bit for
      bit on mutual pairs; the matcher's mutual-match targets through the
-     kernel against those through the plain version.
+     kernel against those through the plain version;
+  7. the whole app, sfm_reconstruct(skip_sfm=False), on phase 4's scene
+     from its prebundle, on the card and on the CPU: all 4 views
+     registered by both, track counts within 1%, camera centres within 2%
+     of the generator's true cameras after alignment, and synth_0.out
+     read back;
+  8. bundle adjustment (optimize_arrays, cameras and points) on 64
+     cameras, 10,240 points and about four observations per point, on
+     the card twice and on the CPU: LM steps, final MSE and parameters
+     card against CPU, ms per LM step, CG iterations, the host syncs of
+     one BA, and whether the two card runs are bit-identical;
+  9. on phase 5's prebundle, the automatic initial-pair search on the
+     card, which must reject every candidate by its homography inliers;
+     then the whole app on phase 5's 40 views of 1600 x 1200 from that
+     prebundle (phases 5 and 9 together are sfmrecon at full size), with
+     the initial pair given (MAIN_INITIAL_PAIR): all 40 cameras
+     registered and within 2% of the true cameras.
 It prints one JSON line describing every kernel, and as its last line
 {"ok": true, "device": {...}}. It exits non-zero without a result when
 CUDA is unavailable. Scenes are written under build/chip_smoke/.
@@ -40,6 +56,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -48,12 +65,20 @@ import torch
 import mve_tpu_torch
 from mve_tpu_torch import synthetic
 from mve_tpu_torch.apps import sfmrecon
+from mve_tpu_torch.core import Scene
+from mve_tpu_torch.core.bundle_io import load_mve_bundle
 from mve_tpu_torch.ops import cuda_build, top2 as top2_mod
 from mve_tpu_torch.ops.matching import descriptor_top2, descriptor_top2_pairs, split_tf32
-from mve_tpu_torch.sfm.bundler import matching_batched
+from mve_tpu_torch.sfm.ba import BAOptions, optimize_arrays
+from mve_tpu_torch.sfm.bundler import Intrinsics, IntrinsicsOptions, matching_batched
+from mve_tpu_torch.sfm.bundler import init_pair as init_pair_mod
 from mve_tpu_torch.sfm.bundler.common import Viewport, load_prebundle
 from mve_tpu_torch.sfm.bundler.features import Features
+from mve_tpu_torch.sfm.bundler.incremental import _determine_similarity
+from mve_tpu_torch.sfm.bundler.init_pair import InitialPair
 from mve_tpu_torch.sfm.bundler.matching import Matching
+from mve_tpu_torch.sfm.bundler.pipeline import SfmOptions
+from mve_tpu_torch.sfm.bundler.tracks import Tracks
 
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
@@ -67,6 +92,13 @@ PEAK_BYTES = 3.35e12         # HBM3
 # The main path's scene: sfmrecon is run on tens of photos of several
 # megapixels. Neither is cut.
 MAIN_VIEWS, MAIN_WIDTH, MAIN_HEIGHT = 40, 1600, 1200
+# On that scene the automatic initial pair finds none: most matches lie on
+# the background plane, and every candidate has more than 80% homography
+# inliers (phase 9 checks this on the card; on a smaller scene of the same
+# kind, tests/test_torch_incremental.py shows mve_tpu rejecting the same
+# candidates). A user then names the pair, as --initial-pair does: views
+# 1 and 21 sit on opposite sides of the generator's circle of cameras.
+MAIN_INITIAL_PAIR = (1, 21)
 
 
 def phase(title):
@@ -344,7 +376,6 @@ def phase_card_vs_cpu():
               f"reproduced {rate:.4f} (>=0.95)", flush=True)
         if rate < 0.95:
             raise AssertionError(f"pair {key}: match reproduction {rate:.4f} < 0.95")
-    shutil.rmtree(base, ignore_errors=True)
 
     # The per-pair matcher (bundler.Matching: ops/top2.top2 per pair, bf16
     # for 128-D SIFT and float32 for 64-D SURF on the card) on the same
@@ -441,7 +472,6 @@ def phase_main_path():
         connected.update((m.view_1_id, m.view_2_id))
     if len(connected) != views:
         raise AssertionError(f"only {len(connected)} of {views} views are in a connected pair")
-    shutil.rmtree(scene, ignore_errors=True)
     return (dict(launches=launches, split_launches=split_launches, peak=peak, timings=t,
                  wall=wall), recorder.calls)
 
@@ -534,6 +564,272 @@ def phase_mutual_matches(calls):
     return worst
 
 
+def true_centres(n_views):
+    """Camera centres of the synthetic generator's cameras (seed 7)."""
+    return np.array([-c.rot.astype(np.float64).T @ c.trans.astype(np.float64)
+                     for c in synthetic.make_cameras(n_views, spread=0.55, seed=7)])
+
+
+def aligned_error(est, ref):
+    """Largest distance between est, moved onto ref by the best similarity
+    (the port's Horn alignment), and ref, as a share of ref's extent (the
+    norm of its bounding box's diagonal)."""
+    R, s, t = _determine_similarity(est, ref)
+    aligned = s * est @ R.T + t
+    return float(np.linalg.norm(aligned - ref, axis=1).max()
+                 / np.linalg.norm(ref.max(axis=0) - ref.min(axis=0)))
+
+
+def bundle_centres(bundle):
+    """(registered mask, centres of the registered cameras) of a bundle."""
+    ok = np.array([c.flen > 0 for c in bundle.cameras])
+    centres = np.array([-c.rot.astype(np.float64).T @ c.trans.astype(np.float64)
+                        for c in bundle.cameras if c.flen > 0])
+    return ok, centres
+
+
+# Phase 7 and 9's limits: camera centres within 2% of the true cameras'
+# extent (tests/test_sfm_pipeline.py:68 holds mve_tpu to the same), track
+# counts card against CPU within 1%.
+CENTRE_TOL, TRACK_TOL = 0.02, 0.01
+# Phase 8's limits, card against CPU (float32 on both, the same port code;
+# only the order of float32 sums differs): final MSE relative, the rest
+# absolute. Measured on an H100 (PERF.md): MSE 1.85e-7, focal length
+# 2.5e-5, distortion 2.2e-3 (k1 of an end camera, about -4.3 and weakly
+# held), translation 2.4e-4, rotation 1.3e-5, points 2.7e-4. Each limit
+# is 4-50 times its reading.
+BA_TOLS = dict(mse=1e-5, focal=1e-4, distortion=1e-2, translation=1e-3, rotation=1e-4,
+               points=1e-3)
+
+
+def phase_sfm_card_vs_cpu():
+    """The whole app from phase 4's scene and prebundle, card and CPU."""
+    base = WORK / "small"
+    truth = true_centres(4)
+    found = {}
+    for dev in ("cuda", "cpu"):
+        scene = base / f"sfm_{dev}"
+        shutil.rmtree(scene, ignore_errors=True)
+        shutil.copytree(base / "cuda", scene)
+        t0 = time.perf_counter()
+        inc = sfmrecon.sfm_reconstruct(str(scene), verbose=False, device=dev)
+        wall = time.perf_counter() - t0
+        t = sfmrecon.LAST_TIMINGS
+        ok, centres = bundle_centres(load_mve_bundle(str(scene / "synth_0.out")))
+        err = aligned_error(centres, truth) if ok.all() else math.inf
+        found[dev] = (t["n_tracks"], centres)
+        print(f"  {dev}: {wall:.3f} s, {int(ok.sum())}/4 cameras, {t['n_tracks']} tracks, "
+              f"centres {err:.5f} of the true extent (<={CENTRE_TOL}), last BA MSE "
+              f"{inc.last_ba_status.final_mse:.6e}, incremental_ms {t['incremental_ms']} "
+              f"{t['incremental_phases']}, BA {t['ba_totals']}, undistort_ms {t['undistort_ms']}",
+              flush=True)
+        if not ok.all() or t["n_cameras"] != 4:
+            raise AssertionError(f"{dev}: only {int(ok.sum())} of 4 views registered")
+        if err > CENTRE_TOL:
+            raise AssertionError(f"{dev}: camera centres {err:.5f} of the extent from the truth")
+    (nc, cc), (nk, ck) = found["cuda"], found["cpu"]
+    print(f"  card against CPU: tracks {nc} / {nk}, centres {aligned_error(cc, ck):.2e} of "
+          f"the extent apart", flush=True)
+    if abs(nc - nk) > TRACK_TOL * nk:
+        raise AssertionError(f"track counts differ by more than 1%: cuda {nc}, cpu {nk}")
+    shutil.rmtree(base, ignore_errors=True)
+
+
+def synthetic_ba_problem(n_cams, n_pts, n_obs_per_pt, seed=0):
+    """A copy of __graft_entry__._synthetic_ba_problem (the BA problem of
+    bench.py:170-181), which imports mve_tpu: points in a cube at z = 5,
+    cameras on an arc looking at it, each point seen by a window of
+    n_obs_per_pt cameras, observations with 1e-3 noise, then cameras and
+    points perturbed. Returns float64 (intr, trans, rot, points, obs) and
+    int32 (cam_idx, pt_idx), rounded through float32 as the original's."""
+    rng = np.random.RandomState(seed)
+    pts = rng.rand(n_pts, 3) * 2 - 1
+    pts[:, 2] += 5.0
+    intr = np.zeros((n_cams, 3))
+    trans = np.zeros((n_cams, 3))
+    rot = np.zeros((n_cams, 3, 3))
+    target = np.array([0.0, 0.0, 5.0])
+    for i in range(n_cams):
+        intr[i] = [0.9, 0.0, 0.0]
+        theta = (i / max(n_cams - 1, 1) - 0.5) * 1.2
+        center = np.array([5.0 * np.sin(theta), 0.2 * rng.randn(), 5.0 - 5.0 * np.cos(theta)])
+        fwd = (target - center) / np.linalg.norm(target - center)
+        right = np.cross([0.0, 1.0, 0.0], fwd)
+        right /= np.linalg.norm(right)
+        R = np.stack([right, np.cross(fwd, right), fwd])
+        rot[i] = R
+        trans[i] = -R @ center
+    obs_l, ci_l, pi_l = [], [], []
+    for c in range(n_cams):
+        pc = (rot[c] @ pts.T).T + trans[c]
+        uv = pc[:, :2] / pc[:, 2:] * intr[c, 0]
+        first = (np.arange(n_pts) * 7919) % max(n_cams - n_obs_per_pt + 1, 1)
+        sel = (c >= first) & (c < first + n_obs_per_pt)
+        if not sel.any():
+            continue
+        obs_l.append(uv[sel] + rng.randn(int(sel.sum()), 2) * 1e-3)
+        ci_l.append(np.full(int(sel.sum()), c))
+        pi_l.append(np.nonzero(sel)[0])
+    intr[:, 0] += rng.randn(n_cams) * 0.01
+    trans += rng.randn(n_cams, 3) * 0.01
+    pts += rng.randn(n_pts, 3) * 0.02
+    f32 = lambda a: np.asarray(a, np.float32).astype(np.float64)
+    return (f32(intr), f32(trans), f32(rot), f32(pts), f32(np.concatenate(obs_l)),
+            np.concatenate(ci_l).astype(np.int32), np.concatenate(pi_l).astype(np.int32))
+
+
+def count_syncs(fn):
+    """(result, host syncs) of fn(), by torch.cuda's sync debug mode."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def device_busy(fn):
+    """(result, wall ms, device kernel ms) of fn() under torch.profiler:
+    the sum of the kernels' own time on the card against the host's
+    clock, both inflated a little by the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    busy = sum(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+               for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    return out, wall, busy / 1e3
+
+
+def phase_ba():
+    """optimize_arrays at the size of ROADMAP.md item 6 (bench.py's BA):
+    card against CPU from the same arrays, float32 on both. Limits: LM
+    steps equal or one apart (tests/test_torch_ba.py allows one step
+    against mve_tpu), final MSE and parameters within BA_TOLS."""
+    arrays = synthetic_ba_problem(64, 10_240, 4, seed=0)
+    n_obs = len(arrays[4])
+    opts = BAOptions()
+    out = {}
+    for name, dev in (("cuda", "cuda"), ("cuda, again", "cuda"), ("cpu", "cpu")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = optimize_arrays(*arrays, opts, device=dev)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+        st = res[4]
+        out[name] = res
+        print(f"  {name}: {wall:.1f} ms, MSE {st.initial_mse:.6e} -> {st.final_mse:.6e}, "
+              f"{st.num_lm_iterations} LM steps ({st.num_lm_successful_iterations} ok), "
+              f"{st.num_cg_iterations} CG iterations, {wall / max(st.num_lm_iterations, 1):.2f} "
+              f"ms per LM step, {wall / max(st.num_cg_iterations, 1):.3f} ms per CG iteration",
+              flush=True)
+    res, syncs = count_syncs(lambda: optimize_arrays(*arrays, opts, device="cuda"))
+    st = res[4]
+    print(f"  host syncs of one card BA: {syncs} ({st.num_lm_iterations} LM steps, "
+          f"{st.num_cg_iterations} CG iterations)", flush=True)
+    _, wall, busy = device_busy(lambda: optimize_arrays(*arrays, opts, device="cuda"))
+    print(f"  under torch.profiler: {wall:.1f} ms, of which device kernels {busy:.1f} ms "
+          f"({100 * busy / wall:.1f}% busy, {100 - 100 * busy / wall:.1f}% idle)", flush=True)
+    a, b, c = out["cuda"], out["cuda, again"], out["cpu"]
+    identical = all(np.array_equal(x, y) for x, y in zip(a[:4], b[:4])) and \
+        a[4].final_mse == b[4].final_mse and a[4].num_cg_iterations == b[4].num_cg_iterations
+    print(f"  two card runs bit-identical: {identical}", flush=True)
+    steps = abs(a[4].num_lm_iterations - c[4].num_lm_iterations)
+    gaps = dict(mse=abs(a[4].final_mse - c[4].final_mse) / c[4].final_mse)
+    for name, x, y in (("focal", a[0][:, 0], c[0][:, 0]), ("distortion", a[0][:, 1:], c[0][:, 1:]),
+                       ("translation", a[1], c[1]), ("rotation", a[2], c[2]),
+                       ("points", a[3], c[3])):
+        gaps[name] = float(np.abs(x - y).max())
+    print(f"  card against CPU: LM steps {a[4].num_lm_iterations} / {c[4].num_lm_iterations} "
+          f"(<=1 apart), {n_obs} observations; apart at most (limit): "
+          + ", ".join(f"{k} {v:.3e} ({BA_TOLS[k]:g})" for k, v in gaps.items())
+          + " (final MSE relative)", flush=True)
+    if steps > 1 or any(v > BA_TOLS[k] for k, v in gaps.items()) \
+            or not a[4].final_mse < a[4].initial_mse:
+        raise AssertionError("BA on the card disagrees with BA on the CPU")
+    return dict(identical=identical, syncs=syncs, status=a[4], busy_share=busy / wall)
+
+
+def initial_pair_search(scene):
+    """The automatic initial-pair search of plain sfmrecon on the card, on
+    the loaded prebundle with sfm_reconstruct's intrinsics, tracks and
+    options: it must find no pair, every candidate it tests being over
+    max_homography_inliers (MAIN_INITIAL_PAIR's comment)."""
+    vps, matching = load_scene_result(str(scene))
+    Intrinsics(IntrinsicsOptions()).compute(Scene(str(scene)), vps)
+    tracks = Tracks().compute(matching, vps)
+    opts = SfmOptions().init_pair_opts
+    fractions = []
+    real = init_pair_mod.ransac_homography
+
+    def recorded(p1, p2, *args, **kwargs):
+        res = real(p1, p2, *args, **kwargs)
+        fractions.append(len(res.inliers) / len(p1))
+        return res
+
+    search = InitialPair(opts, device="cuda")
+    search.initialize(vps, tracks)
+    init_pair_mod.ransac_homography = recorded
+    t0 = time.perf_counter()
+    try:
+        res = search.compute_pair()
+    finally:
+        init_pair_mod.ransac_homography = real
+    torch.cuda.synchronize()
+    print(f"  InitialPair.compute_pair() on the card: {time.perf_counter() - t0:.3f} s, "
+          f"{len(tracks)} tracks, {len(fractions)} candidates tested, homography inlier "
+          f"fractions {min(fractions, default=math.nan):.4f} (lowest) to "
+          f"{max(fractions, default=math.nan):.4f}, limit {opts.max_homography_inliers}; "
+          f"result ({res.view_1_id}, {res.view_2_id})", flush=True)
+    if (res.view_1_id, res.view_2_id) != (-1, -1) or not fractions \
+            or min(fractions) <= opts.max_homography_inliers:
+        raise AssertionError("the automatic initial-pair search did not reject every candidate "
+                             "by its homography inliers")
+
+
+def phase_full_sfm():
+    """The whole app on phase 5's scene, from phase 5's prebundle."""
+    scene = WORK / "main"
+    initial_pair_search(scene)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    top2_mod.launches = top2_mod.split_launches = 0
+    t0 = time.perf_counter()
+    inc = sfmrecon.sfm_reconstruct(str(scene), initial_pair=MAIN_INITIAL_PAIR, verbose=False,
+                                   device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    t = dict(sfmrecon.LAST_TIMINGS)
+    ok, centres = bundle_centres(load_mve_bundle(str(scene / "synth_0.out")))
+    err = aligned_error(centres, true_centres(MAIN_VIEWS)[ok])
+    print(f"  sfm_reconstruct(initial_pair={MAIN_INITIAL_PAIR}, device='cuda') from the "
+          f"prebundle: {wall:.3f} s "
+          f"(top2 launches {top2_mod.launches}: the prebundle is loaded)", flush=True)
+    print(f"  {int(ok.sum())}/{MAIN_VIEWS} cameras, n_tracks {t['n_tracks']}, centres {err:.5f} "
+          f"of the true extent (<={CENTRE_TOL}), last BA MSE {inc.last_ba_status.final_mse:.6e}",
+          flush=True)
+    print(f"  incremental_ms {t['incremental_ms']}, incremental_phases {t['incremental_phases']}, "
+          f"undistort_ms {t['undistort_ms']}", flush=True)
+    bt = t["ba_totals"]
+    print(f"  BAs {bt['n_ba']}, LM steps {bt['lm_iters']}, CG iterations {bt['cg_iters']}, BA ms "
+          f"{bt['ms']} ({bt['ms'] / max(bt['lm_iters'], 1):.2f} ms per LM step), "
+          f"max_memory_allocated {peak} bytes", flush=True)
+    if not ok.all() or t["n_cameras"] != MAIN_VIEWS:
+        raise AssertionError(f"only {int(ok.sum())} of {MAIN_VIEWS} views registered")
+    if err > CENTRE_TOL:
+        raise AssertionError(f"camera centres {err:.5f} of the extent from the truth")
+    shutil.rmtree(scene, ignore_errors=True)
+    return dict(wall=wall, timings=t, peak=peak, err=err)
+
+
 def main() -> int:
     phase("1. environment")
     if not torch.cuda.is_available():
@@ -582,6 +878,16 @@ def main() -> int:
     phase("6. top2 at the main path's inputs")
     at_main, split_at_main = phase_main_path_kernel(calls)
     mutual_same = phase_mutual_matches(calls)
+
+    phase("7. whole app, card against CPU, 4 views of 480x360 from phase 4's prebundle")
+    phase_sfm_card_vs_cpu()
+
+    phase("8. bundle adjustment, 64 cameras, 10,240 points, 4 observations a point")
+    phase_ba()
+
+    phase(f"9. whole app, {MAIN_VIEWS} views of {MAIN_WIDTH}x{MAIN_HEIGHT} from phase 5's "
+          f"prebundle, initial pair {MAIN_INITIAL_PAIR}")
+    phase_full_sfm()
 
     replaces = "mve_tpu/ops/pallas_matching.py:27"
     kernels = [

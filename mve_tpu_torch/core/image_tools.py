@@ -10,6 +10,8 @@ how the batched SIFT pyramid calls them. Behaviours match the reference:
   (image_tools.h:619-...).
 - blur_gaussian: separable convolution, kernel size ceil(sigma*2.884)*2+1,
   with edge-replicating borders.
+- image_undistort_k2k4_batch: sfmrecon's undistortion of a stack of
+  same-shape views (image_tools.h:106-139) by bilinear sampling.
 """
 
 from __future__ import annotations
@@ -116,3 +118,59 @@ def blur_gaussian(img: torch.Tensor, sigma: float) -> torch.Tensor:
     if sigma <= 0:
         return img
     return blur_planes(img.permute(2, 0, 1), sigma).permute(1, 2, 0)
+
+
+def bilinear_sample_batch(imgs: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                          fill: float = 0.0) -> torch.Tensor:
+    """Sample each (H, W, C) image of imgs (B, H, W, C) at continuous
+    pixel coordinates x, y (B, ...): pixel centres at integers (the
+    caller applies the -0.5 shift); samples outside the image are `fill`
+    (mve_tpu's bilinear_sample, per image)."""
+    b, h, w = imgs.shape[0], imgs.shape[1], imgs.shape[2]
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = (x - x0)[..., None]
+    fy = (y - y0)[..., None]
+    x0i = x0.to(torch.int64)
+    y0i = y0.to(torch.int64)
+    bi = torch.arange(b, device=imgs.device).reshape((b,) + (1,) * (x.dim() - 1))
+
+    def gather(yi, xi):
+        return imgs[bi, torch.clamp(yi, 0, h - 1), torch.clamp(xi, 0, w - 1)]
+
+    val = (gather(y0i, x0i) * (1 - fx) * (1 - fy)
+           + gather(y0i, x0i + 1) * fx * (1 - fy)
+           + gather(y0i + 1, x0i) * (1 - fx) * fy
+           + gather(y0i + 1, x0i + 1) * fx * fy)
+    inside = ((x >= 0) & (x <= w - 1) & (y >= 0) & (y <= h - 1))[..., None]
+    return torch.where(inside, val, fill)
+
+
+def image_undistort_k2k4_batch(imgs, flen, k2, k4, device="cuda") -> np.ndarray:
+    """k2/k4 undistortion of a stack of same-shape views in one pass
+    (sfmrecon.cc:403-444 loops over views; here the batch is the parallel
+    axis). Output pixel p samples the input at p * rd(p) with
+    rd(r) = 1 + k2 r^2 + k4 r^4, r in units of flen * max(W, H).
+
+    imgs: (B, H, W, C) uint8 (sent as bytes, converted on the device);
+    flen/k2/k4: (B,) per view. Returns (B, H, W, C) uint8 as numpy.
+    """
+    dev = torch.device(device)
+    imgs = torch.from_numpy(np.ascontiguousarray(imgs)).to(dev)
+    f = imgs.to(torch.float32) / 255.0
+
+    def col(v):
+        return torch.as_tensor(np.asarray(v, np.float32), device=dev)[:, None, None]
+
+    fl, a2, a4 = col(flen), col(k2), col(k4)
+    h, w = imgs.shape[1], imgs.shape[2]
+    fw, fh = float(w), float(h)
+    ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
+                            torch.arange(w, dtype=torch.float32, device=dev), indexing="ij")
+    cx = (xs + 0.5) - fw / 2.0
+    cy = (ys + 0.5) - fh / 2.0
+    norm = fl * max(fw, fh)
+    r2 = (cx * cx + cy * cy) / (norm * norm)
+    factor = 1.0 + a2 * r2 + a4 * r2 * r2
+    out = bilinear_sample_batch(f, cx * factor + fw / 2.0 - 0.5, cy * factor + fh / 2.0 - 0.5)
+    return torch.clamp(out * 255.0 + 0.5, 0, 255).to(torch.uint8).cpu().numpy()

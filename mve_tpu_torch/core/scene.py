@@ -7,10 +7,12 @@ Layout on disk (scene.h:34-100):
         view_0000.mve/   (View directories, see view.py)
         view_0001.mve/
         ...
+      synth_0.out        (MVE bundle, lazy-loaded)
 
 Views are ordered and addressed by their meta.ini id; save_views writes
 only dirty views and cache_cleanup releases loaded image data. The bundle
-(synth_0.out) is not read or written here yet.
+is loaded on first use and written by save_bundle (or save_scene when it
+is dirty).
 """
 
 from __future__ import annotations
@@ -19,9 +21,12 @@ import os
 import re
 from typing import List, Optional
 
+from .bundle import Bundle
+from . import bundle_io
 from .view import View
 
 VIEWS_DIR = "views"
+BUNDLE_FILE = "synth_0.out"
 _VIEW_DIR_RE = re.compile(r"^view_(\d+)\.mve$")
 
 
@@ -29,6 +34,8 @@ class Scene:
     def __init__(self, path: Optional[str] = None):
         self._path: Optional[str] = None
         self.views: List[Optional[View]] = []
+        self._bundle: Optional[Bundle] = None
+        self._bundle_dirty = False
         if path is not None:
             self.load_scene(path)
 
@@ -66,6 +73,8 @@ class Scene:
             if self.views[v.id] is not None:
                 raise IOError(f"duplicate view id {v.id}")
             self.views[v.id] = v
+        self._bundle = None
+        self._bundle_dirty = False
 
     @staticmethod
     def create(path: str) -> "Scene":
@@ -74,6 +83,27 @@ class Scene:
         scene = Scene()
         scene._path = path.rstrip("/")
         return scene
+
+    def get_bundle(self) -> Bundle:
+        """Lazy-load synth_0.out (scene.h:64-74)."""
+        if self._bundle is None:
+            bundle_path = os.path.join(self._path, BUNDLE_FILE)
+            if not os.path.isfile(bundle_path):
+                raise IOError(f"{bundle_path}: no bundle in scene")
+            self._bundle = bundle_io.load_mve_bundle(bundle_path)
+        return self._bundle
+
+    def has_bundle(self) -> bool:
+        return self._bundle is not None or os.path.isfile(os.path.join(self._path, BUNDLE_FILE))
+
+    def set_bundle(self, bundle: Bundle) -> None:
+        self._bundle = bundle
+        self._bundle_dirty = True
+
+    def save_bundle(self) -> None:
+        if self._bundle is not None:
+            bundle_io.save_mve_bundle(self._bundle, os.path.join(self._path, BUNDLE_FILE))
+            self._bundle_dirty = False
 
     def add_view(self, view: View) -> None:
         """Register a view; its directory is assigned from its id."""
@@ -90,8 +120,13 @@ class Scene:
             if view is not None and view.is_dirty():
                 view.save_view(view.get_directory() or self.view_dir_for_id(view.id))
 
+    def save_scene(self) -> None:
+        if self._bundle_dirty:
+            self.save_bundle()
+        self.save_views()
+
     def is_dirty(self) -> bool:
-        return any(v is not None and v.is_dirty() for v in self.views)
+        return self._bundle_dirty or any(v is not None and v.is_dirty() for v in self.views)
 
     def cache_cleanup(self) -> int:
         return sum(v.cache_cleanup() for v in self.views if v is not None)

@@ -91,7 +91,7 @@ def test_interop_round_trip(jax_viewports, port_viewports):
     for j, p in zip(jax_viewports, port_viewports):
         for k in interop.VIEWPORT_FIELDS:
             np.testing.assert_array_equal(np.asarray(getattr(p, k)), np.asarray(getattr(j, k)))
-    sift_opts, surf_opts, mopts = interop.options_from_dict({
+    sift_opts, surf_opts, mopts, *_ = interop.options_from_dict({
         "sift": {"max_keypoints_per_octave": 2048},
         "surf": {"contrast_threshold": 400.0},
         "matching": {"lowe_ratio": 0.7, "ransac_opts": {"threshold": 0.002}}})
