@@ -42,10 +42,36 @@ Phases, each printed as it runs; any failure raises and ends the run:
      then the whole app on phase 5's 40 views of 1600 x 1200 from that
      prebundle (phases 5 and 9 together are sfmrecon at full size), with
      the initial pair given (MAIN_INITIAL_PAIR): all 40 cameras
-     registered and within 2% of the true cameras.
+     registered and within 2% of the true cameras;
+ 10. dmrecon (reconstruct_views, Settings() but for 3 local neighbours,
+     as a view there has 3) on phase 7's scene and cameras, with each
+     solver: the rectified sweep (the default) at scale 1, the warp solver
+     (use_sweep=False) and the warp solver with exact NCC (view 0) at
+     scale 2; each on the card twice and on the CPU: the solver it was
+     meant to take, the same embeddings for the same views, per-view fill
+     within 0.005, the median relative depth difference on pixels both
+     accept within DEPTH_TOL, and a second card run bit-identical to the
+     first; then torch.argmax on an all-tied tensor returning index 0 on
+     the card;
+ 11. dmrecon at full size: reconstruct_views(scale=2) on phase 9's 40
+     views of 1600 x 1200 with the port's own synth_0.out (depth maps of
+     400 x 300, 20 neighbours each): every view gets a depth map from the
+     sweep solver, every fill at least FILL_FLOOR, and every view's
+     accepted depths lie on the scene's two planes as the bundle's 3D
+     points place them (median relative error within TRUTH_TOL, at most
+     GROSS_TOL of the pixels more than GROSS_OFF off); per-view and mean
+     fill, wall time split into host
+     preparation, device solve and writes, peak device memory, one view's
+     device busy share, its ten most expensive device ops and the time of
+     each solver phase, and the same view with torch.cumsum and plain
+     multiply-adds in place of the CPU's order (its time, and how far its
+     depths move); then view 0 card against CPU with phase 10's limits;
+ 12. scene2pset -F2 on phase 11's depth maps: point count, wall time, and
+     the PLY read back with normals, values and confidences.
 It prints one JSON line describing every kernel, and as its last line
 {"ok": true, "device": {...}}. It exits non-zero without a result when
-CUDA is unavailable. Scenes are written under build/chip_smoke/.
+CUDA is unavailable. Scenes are written under build/chip_smoke/ and
+removed when the phases that read them are done.
 """
 
 import json
@@ -64,9 +90,15 @@ import torch
 
 import mve_tpu_torch
 from mve_tpu_torch import synthetic
-from mve_tpu_torch.apps import sfmrecon
+from mve_tpu_torch.apps import dmrecon, scene2pset, sfmrecon
 from mve_tpu_torch.core import Scene
 from mve_tpu_torch.core.bundle_io import load_mve_bundle
+from mve_tpu_torch.core.mesh_io import load_mesh
+from mve_tpu_torch.mvs import Settings as MvsSettings
+from mve_tpu_torch.mvs import dmrecon as mvs_dmrecon
+from mve_tpu_torch.mvs import patch as mvs_patch
+from mve_tpu_torch.mvs import sweep_solver as mvs_sweep
+from mve_tpu_torch.mvs import view_selection as mvs_vs
 from mve_tpu_torch.ops import cuda_build, top2 as top2_mod
 from mve_tpu_torch.ops.matching import descriptor_top2, descriptor_top2_pairs, split_tf32
 from mve_tpu_torch.sfm.ba import BAOptions, optimize_arrays
@@ -632,7 +664,6 @@ def phase_sfm_card_vs_cpu():
           f"the extent apart", flush=True)
     if abs(nc - nk) > TRACK_TOL * nk:
         raise AssertionError(f"track counts differ by more than 1%: cuda {nc}, cpu {nk}")
-    shutil.rmtree(base, ignore_errors=True)
 
 
 def synthetic_ba_problem(n_cams, n_pts, n_obs_per_pt, seed=0):
@@ -690,10 +721,11 @@ def count_syncs(fn):
     return out, sum("synchroniz" in str(w.message) for w in caught)
 
 
-def device_busy(fn):
-    """(result, wall ms, device kernel ms) of fn() under torch.profiler:
-    the sum of the kernels' own time on the card against the host's
-    clock, both inflated a little by the profiler."""
+def device_profile(fn, top=0):
+    """(result, wall ms, device kernel ms, top ops) of fn() under
+    torch.profiler: the sum of the kernels' own time on the card against
+    the host's clock, both inflated a little by the profiler, and the
+    `top` device ops with the most time as (name, ms, calls)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -703,9 +735,10 @@ def device_busy(fn):
         out = fn()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
-    busy = sum(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
-               for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
-    return out, wall, busy / 1e3
+    own = [(e.key, (getattr(e, "self_device_time_total", None) or e.self_cuda_time_total) / 1e3,
+            e.count) for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    own.sort(key=lambda x: -x[1])
+    return out, wall, sum(ms for _, ms, _ in own), own[:top]
 
 
 def phase_ba():
@@ -734,7 +767,7 @@ def phase_ba():
     st = res[4]
     print(f"  host syncs of one card BA: {syncs} ({st.num_lm_iterations} LM steps, "
           f"{st.num_cg_iterations} CG iterations)", flush=True)
-    _, wall, busy = device_busy(lambda: optimize_arrays(*arrays, opts, device="cuda"))
+    _, wall, busy, _ = device_profile(lambda: optimize_arrays(*arrays, opts, device="cuda"))
     print(f"  under torch.profiler: {wall:.1f} ms, of which device kernels {busy:.1f} ms "
           f"({100 * busy / wall:.1f}% busy, {100 - 100 * busy / wall:.1f}% idle)", flush=True)
     a, b, c = out["cuda"], out["cuda, again"], out["cpu"]
@@ -826,8 +859,322 @@ def phase_full_sfm():
         raise AssertionError(f"only {int(ok.sum())} of {MAIN_VIEWS} views registered")
     if err > CENTRE_TOL:
         raise AssertionError(f"camera centres {err:.5f} of the extent from the truth")
-    shutil.rmtree(scene, ignore_errors=True)
     return dict(wall=wall, timings=t, peak=peak, err=err)
+
+
+# Phases 10 and 11's limits, card against CPU (the same port code, float32
+# on both; exp and arccos round differently on the two, and the solver's
+# PatchMatch picks and parabolic steps turn such last-bit differences into
+# moves of a polish step): per-view fill within FILL_TOL, median relative
+# depth difference on pixels both accept within DEPTH_TOL. Measured on an
+# H100 (PERF.md): fill 3e-4 apart at most, medians 1.9e-4 to 6.8e-4.
+FILL_TOL, DEPTH_TOL = 0.005, 1e-3
+DEPTH_EMBEDDINGS = ("depth", "conf", "dz", "undist")
+# Phase 11's limits against the scene itself: every view's fill (lowest
+# measured on an H100: 0.8635, PERF.md); every view's accepted depths
+# against the scene's two planes (scene_planes): the median relative error
+# within TRUTH_TOL, and at most GROSS_TOL of the pixels more than GROSS_OFF
+# off. Measured on an H100 (PERF.md): medians 9.2e-4 to 1.44e-3, at most
+# 0.2% of the pixels more than 5% off.
+FILL_FLOOR, TRUTH_TOL, GROSS_OFF, GROSS_TOL = 0.85, 3e-3, 0.05, 0.005
+
+
+def depth_maps(scene, name):
+    """{view id: (H, W) depth map} of every view that has embedding name."""
+    return {i: v.get_image(name)[..., 0] for i, v in enumerate(Scene(str(scene)).get_views())
+            if v is not None and v.has_image(name)}
+
+
+def compare_depths(card, cpu):
+    """Per view, card against CPU: fill gap and median relative depth
+    difference on pixels both accept, printed; raises outside FILL_TOL
+    and DEPTH_TOL. Returns (worst fill gap, worst median)."""
+    if set(card) != set(cpu) or not cpu:
+        raise AssertionError(f"depth maps for views {sorted(card)} on the card, {sorted(cpu)} on the CPU")
+    worst_fill = worst_med = 0.0
+    for i in sorted(cpu):
+        a, b = card[i], cpu[i]
+        fa, fb = float((a > 0).mean()), float((b > 0).mean())
+        both = (a > 0) & (b > 0)
+        med = float(np.median(np.abs(a[both] - b[both]) / b[both])) if both.any() else math.inf
+        worst_fill, worst_med = max(worst_fill, abs(fa - fb)), max(worst_med, med)
+        print(f"  view {i}: fill card {fa:.4f} / cpu {fb:.4f}, median relative depth difference "
+              f"{med:.3e}, {float((a == b).mean()):.4f} of pixels identical", flush=True)
+    print(f"  worst: fill gap {worst_fill:.4f} (<={FILL_TOL}), median relative depth difference "
+          f"{worst_med:.3e} (<={DEPTH_TOL:g})", flush=True)
+    if worst_fill > FILL_TOL or worst_med > DEPTH_TOL:
+        raise AssertionError("dmrecon on the card disagrees with dmrecon on the CPU")
+    return worst_fill, worst_med
+
+
+def check_embeddings(scenes, level):
+    """The same depth/conf/dz/undist embeddings, shapes and dtypes for the
+    same views in every scene."""
+    names = [f"{e}-L{level}" for e in DEPTH_EMBEDDINGS]
+    found = []
+    for scene in scenes:
+        found.append({(i, n): (v.get_image(n).shape, v.get_image(n).dtype)
+                      for i, v in enumerate(Scene(str(scene)).get_views()) if v is not None
+                      for n in names if v.has_image(n)})
+    if any(f != found[0] for f in found[1:]) or not found[0]:
+        raise AssertionError("the runs wrote different embeddings")
+    return len({i for i, _ in found[0]})
+
+
+def solvers_taken():
+    """The solver of each batch of the last reconstruct_views call."""
+    return {b[1] for b in mvs_dmrecon.LAST_TIMINGS["batches"]}
+
+
+def phase_dmrecon_card_vs_cpu():
+    """dmrecon on phase 7's scene (4 views of 480 x 360, cameras from
+    phase 7's card run) with each solver: card twice and CPU. A view of
+    this scene has 3 neighbours, so local view selection takes 3
+    (nr_recon_neighbors=3); everything else is Settings()'s default but
+    for the solver's switches. The sweep solver runs at scale 1; the warp
+    solvers, which take the CPU 10 s a view at scale 1 and 40-75 s with
+    exact NCC, run at scale 2, exact NCC for view 0 only."""
+    base = WORK / "small"
+    solvers = (("sweep", "sweep", dict(), 1, None),
+               ("warp", "warp", dict(use_sweep=False), 2, None),
+               ("warp, exact NCC", "warp", dict(use_sweep=False, exact_ncc=True), 2, {0}))
+    for label, want, switches, level, view_ids in solvers:
+        print(f"  -- {label} solver, scale {level}, views {sorted(view_ids or range(4))}",
+              flush=True)
+        settings = MvsSettings(nr_recon_neighbors=3, **switches)
+        scenes = {}
+        for name, dev in (("cuda", "cuda"), ("cuda, again", "cuda"), ("cpu", "cpu")):
+            scene = base / f"dm_{name.replace(', ', '_')}"
+            shutil.rmtree(scene, ignore_errors=True)
+            shutil.copytree(base / "sfm_cuda", scene)
+            t0 = time.perf_counter()
+            n = dmrecon.reconstruct_views(str(scene), scale=level, settings=settings,
+                                          verbose=False, view_ids=view_ids, device=dev)
+            torch.cuda.synchronize()
+            print(f"  {name}: {n} depth maps in {time.perf_counter() - t0:.3f} s, fills "
+                  f"{dmrecon.LAST_STATS.get('per_view_fills')}, {mvs_dmrecon.LAST_TIMINGS}",
+                  flush=True)
+            if solvers_taken() != {want}:
+                raise AssertionError(f"dmrecon took the {solvers_taken()} solver, not {want}")
+            scenes[name] = scene
+        n_views = check_embeddings(scenes.values(), level)
+        card = depth_maps(scenes["cuda"], f"depth-L{level}")
+        again = depth_maps(scenes["cuda, again"], f"depth-L{level}")
+        identical = set(card) == set(again) and all(np.array_equal(card[i], again[i]) for i in card)
+        print(f"  {n_views} views with depth, conf, dz and undist embeddings in all three runs; "
+              f"two card runs bit-identical: {identical}", flush=True)
+        if n_views != len(view_ids or range(4)) or not identical:
+            raise AssertionError("dmrecon: views missing, or two card runs differ")
+        compare_depths(card, depth_maps(scenes["cpu"], f"depth-L{level}"))
+    tied = torch.full((21, 300, 400), -1.0, device="cuda")
+    first = torch.argmax(tied, dim=0)
+    tied[5:] = 0.5
+    fifth = torch.argmax(tied, dim=0)
+    ok = bool((first == 0).all()) and bool((fifth == 5).all())
+    print(f"  torch.argmax on the card over all-tied (21, 300, 400): first index everywhere: {ok}",
+          flush=True)
+    if not ok:
+        raise AssertionError("torch.argmax on the card does not return the first of tied maxima")
+    shutil.rmtree(base, ignore_errors=True)
+
+
+def scene_planes(scene):
+    """The scene's two planes as the bundle's own 3D points (sfmrecon's
+    triangulated tracks, which dmrecon does not touch) place them:
+    (R, s, t, planes). R, s, t is the similarity that moves the bundle's
+    camera centres onto the generator's (aligned = s R x + t); planes is
+    ((a, b, c) of the near patch, (a, b, c) of the background), each
+    z = a x + b y + c in the generator's frame, fitted by least squares
+    to the aligned points of its side of a two-means split of their z,
+    once and again without points more than three median residuals off.
+    Planes fitted from the bundle rather than taken from the generator:
+    sfmrecon estimates the focal length (1.0 without EXIF data, against
+    the generator's 0.9), which stretches the scene along the viewing
+    direction but keeps planes planar."""
+    bundle = load_mve_bundle(str(scene / "synth_0.out"))
+    ok, centres = bundle_centres(bundle)
+    R, s, t = _determine_similarity(centres, true_centres(len(ok))[ok])
+    p = s * bundle.feature_positions().astype(np.float64) @ R.T + t
+    z = p[:, 2]
+    split = float(np.median(z))
+    for _ in range(50):
+        split = 0.5 * (z[z < split].mean() + z[z >= split].mean())
+    planes = []
+    for side in (z < split, z >= split):
+        q = p[side]
+        A = np.c_[q[:, :2], np.ones(len(q))]
+        coef = np.linalg.lstsq(A, q[:, 2], rcond=None)[0]
+        res = np.abs(A @ coef - q[:, 2])
+        keep = res <= 3 * np.median(res)
+        planes.append(np.linalg.lstsq(A[keep], q[keep, 2], rcond=None)[0])
+    return R, s, t, planes
+
+
+def depth_truth_errors(scene, name):
+    """{view id: (median relative error, share more than GROSS_OFF off)}
+    of each view's accepted depths against the scene's two planes
+    (scene_planes): each pixel's point, in the generator's frame, is off
+    the nearer plane by its distance along z, taken over the point's ray
+    length."""
+    R, s, t, planes = scene_planes(scene)
+    out = {}
+    for i, view in enumerate(Scene(str(scene)).get_views()):
+        if view is None or not view.has_image(name):
+            continue
+        depth = view.get_image(name)[..., 0].astype(np.float64)
+        H, W = depth.shape
+        cam = view.camera
+        ys, xs = np.mgrid[0:H, 0:W].astype(np.float64)
+        pix = np.stack([xs + 0.5, ys + 0.5, np.ones_like(xs)], axis=-1)[depth > 0]
+        rays = (pix @ cam.inverse_calibration(W, H).T) @ cam.rot.astype(np.float64)
+        rays /= np.linalg.norm(rays, axis=1, keepdims=True)
+        d = depth[depth > 0]
+        p = s * (cam.camera_pos() + d[:, None] * rays) @ R.T + t
+        off = np.min([np.abs(p[:, 0] * a + p[:, 1] * b + c - p[:, 2]) for a, b, c in planes],
+                     axis=0)
+        rel = off / (s * d)
+        out[i] = float(np.median(rel)), float((rel > GROSS_OFF).mean())
+    return out
+
+
+def prepare_view(scene_path, view_id, settings):
+    """mvs.dmrecon's host preparation of one view, as reconstruct_batch
+    runs it."""
+    import dataclasses
+
+    scene = Scene(str(scene_path))
+    return mvs_dmrecon._prepare_view(scene, dataclasses.replace(settings, ref_view_nr=view_id),
+                                     *mvs_dmrecon._scene_inputs(scene, settings), view_id)
+
+
+def phase_full_dmrecon():
+    """dmrecon -s2 on phase 9's scene with the app's default Settings."""
+    scene = WORK / "main"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    n = dmrecon.reconstruct_views(str(scene), scale=2, settings=MvsSettings(), verbose=False,
+                                  device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    t = dict(mvs_dmrecon.LAST_TIMINGS)
+    fills = dmrecon.LAST_STATS["per_view_fills"]
+    shapes = {m.shape for m in depth_maps(scene, "depth-L2").values()}
+    expect = (MAIN_HEIGHT + 3) // 4, (MAIN_WIDTH + 3) // 4
+    print(f"  reconstruct_views(scale=2, device='cuda'): {n} depth maps of {sorted(shapes)} in "
+          f"{wall:.3f} s: host preparation {t['prepare_ms'] / 1e3:.3f} s, device solve (synced) "
+          f"{t['solve_ms'] / 1e3:.3f} s, writes {t['write_ms'] / 1e3:.3f} s, rest "
+          f"{wall - (t['prepare_ms'] + t['solve_ms'] + t['write_ms']) / 1e3:.3f} s; batches "
+          f"(views, solver, H, W, J) {t['batches']}", flush=True)
+    print(f"  fill per view {[round(fills[i], 4) for i in sorted(fills)]}, mean "
+          f"{dmrecon.LAST_STATS['depth_fill']:.4f}, lowest {dmrecon.LAST_STATS['depth_fill_min']:.4f}; "
+          f"max_memory_allocated {peak} bytes", flush=True)
+    if n != MAIN_VIEWS or len(fills) != MAIN_VIEWS or shapes != {expect}:
+        raise AssertionError(f"dmrecon wrote {n} depth maps of {shapes}, expected {MAIN_VIEWS} of {expect}")
+    if solvers_taken() != {"sweep"}:
+        raise AssertionError(f"dmrecon took the {solvers_taken()} solver, not the sweep solver")
+    if not all(np.isfinite(m).all() for m in depth_maps(scene, "depth-L2").values()) \
+            or dmrecon.LAST_STATS["depth_fill_min"] < FILL_FLOOR:
+        raise AssertionError(f"dmrecon: a depth map is not finite, or a fill is below {FILL_FLOOR}")
+    truth = depth_truth_errors(scene, "depth-L2")
+    worst = max(m for m, _ in truth.values())
+    gross = max(g for _, g in truth.values())
+    print(f"  accepted depths against the scene's planes (fitted to the bundle's points): median "
+          f"relative error per view {[float(f'{truth[i][0]:.3e}') for i in sorted(truth)]}, worst "
+          f"{worst:.3e} (<={TRUTH_TOL:g}); share more than {GROSS_OFF:g} off per view "
+          f"{[round(truth[i][1], 5) for i in sorted(truth)]}, worst {gross:.5f} (<={GROSS_TOL:g})",
+          flush=True)
+    if len(truth) != MAIN_VIEWS or worst > TRUTH_TOL or gross > GROSS_TOL:
+        raise AssertionError("dmrecon: depths off the scene's planes")
+
+    # One view alone: the solver's phases by CUDA events, then under the
+    # profiler (busy share and the ten most expensive device ops).
+    settings = MvsSettings(scale=2)
+    prep = prepare_view(scene, 0, settings)
+    if not mvs_dmrecon._sweep_capable(prep, settings):
+        raise AssertionError("view 0 does not take the sweep solver")
+    mvs_dmrecon._run_batch([prep], settings, "cuda")      # warm-up
+    marks = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mvs_dmrecon._run_batch([prep], settings, "cuda", marks)
+    view_ms = 1e3 * (time.perf_counter() - t0)
+    phases = {a[0]: a[1].elapsed_time(b[1]) for a, b in zip(marks, marks[1:])}
+    print(f"  view 0 alone (sweep solver, {prep['n_selected']} neighbours): {view_ms:.1f} ms; "
+          f"phases on the card (ms) " + ", ".join(f"{k} {v:.1f}" for k, v in phases.items()),
+          flush=True)
+    _, pwall, busy, tops = device_profile(lambda: mvs_dmrecon._run_batch([prep], settings, "cuda"),
+                                          top=10)
+    print(f"  under torch.profiler: {pwall:.1f} ms, of which device kernels {busy:.1f} ms "
+          f"({100 * busy / pwall:.1f}% busy, {100 - 100 * busy / pwall:.1f}% idle); top device ops:",
+          flush=True)
+    for name, ms, calls in tops:
+        print(f"    {ms:9.2f} ms {calls:6d} calls  {name[:110]}", flush=True)
+    # The same view with one torch.cumsum per prefix sum and plain float32
+    # multiply-adds in place of the CPU's order (mvs/patch.py): what that
+    # order costs on the card, and how far the depths move without it.
+    plain = {"_prefix_sum": torch.cumsum, "_fma": lambda a, b, c: a * b + c}
+    swapped = [(m, name, getattr(m, name)) for m in (mvs_patch, mvs_sweep, mvs_vs)
+               for name in plain if hasattr(m, name)]
+    ordered = mvs_dmrecon._run_batch([prep], settings, "cuda")[0][0]
+    for m, name, _ in swapped:
+        setattr(m, name, plain[name])
+    try:
+        mvs_dmrecon._run_batch([prep], settings, "cuda")  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        unordered = mvs_dmrecon._run_batch([prep], settings, "cuda")[0][0]
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        _, xwall, xbusy, _ = device_profile(lambda: mvs_dmrecon._run_batch([prep], settings, "cuda"))
+    finally:
+        for m, name, fn in swapped:
+            setattr(m, name, fn)
+    both = (ordered > 0) & (unordered > 0)
+    print(f"  view 0 alone with torch.cumsum and plain multiply-adds on the card: {plain_ms:.1f} ms; "
+          f"under torch.profiler {xwall:.1f} ms, of which device kernels {xbusy:.1f} ms "
+          f"({100 * xbusy / xwall:.1f}% busy); fill {float((unordered > 0).mean()):.4f} against "
+          f"{float((ordered > 0).mean()):.4f}, median relative depth difference "
+          f"{float(np.median(np.abs(unordered[both] - ordered[both]) / ordered[both])):.3e}",
+          flush=True)
+
+    # View 0, card against CPU, on a copy of the scene.
+    cpu_scene = WORK / "main_cpu"
+    shutil.rmtree(cpu_scene, ignore_errors=True)
+    shutil.copytree(scene, cpu_scene)
+    t0 = time.perf_counter()
+    dmrecon.reconstruct_views(str(cpu_scene), scale=2, view_ids={0}, force=True,
+                              settings=MvsSettings(), verbose=False, device="cpu")
+    print(f"  view 0 on the CPU: {time.perf_counter() - t0:.3f} s "
+          f"({torch.get_num_threads()} threads)", flush=True)
+    card = {0: depth_maps(scene, "depth-L2")[0]}
+    compare_depths(card, {0: depth_maps(cpu_scene, "depth-L2")[0]})
+    shutil.rmtree(cpu_scene, ignore_errors=True)
+    return dict(wall=wall, timings=t, peak=peak, busy_share=busy / pwall, phases=phases)
+
+
+def phase_pointset():
+    """scene2pset -F2 on phase 11's depth maps; then the scene goes."""
+    scene = WORK / "main"
+    out = scene / "pset-L2.ply"
+    t0 = time.perf_counter()
+    merged = scene2pset.scene_to_pointset(
+        str(scene), str(out), dmname="depth-L2", image="undist-L2", with_normals=True,
+        with_scale=True, with_conf=True, verbose=False, device="cuda")
+    wall = time.perf_counter() - t0
+    mesh = load_mesh(str(out))
+    n = merged.num_vertices()
+    print(f"  scene_to_pointset(-F2): {n} points in {wall:.3f} s; {out.name} "
+          f"{out.stat().st_size} bytes, read back {mesh.num_vertices()} vertices", flush=True)
+    norms = np.linalg.norm(mesh.vertex_normals, axis=1) if mesh.has_vertex_normals() else None
+    if not (mesh.num_vertices() == n > 0 and norms is not None and len(norms) == n
+            and np.all(np.abs(norms - 1) < 1e-3) and mesh.has_vertex_values()
+            and mesh.has_vertex_confidences() and np.isfinite(mesh.vertices).all()
+            and (mesh.vertex_values > 0).all()
+            and ((mesh.vertex_confidences >= 0) & (mesh.vertex_confidences <= 1)).all()):
+        raise AssertionError("scene2pset: the point set lacks points, normals, values or confidences")
+    shutil.rmtree(scene, ignore_errors=True)
+    return dict(points=n, wall=wall)
 
 
 def main() -> int:
@@ -888,6 +1235,16 @@ def main() -> int:
     phase(f"9. whole app, {MAIN_VIEWS} views of {MAIN_WIDTH}x{MAIN_HEIGHT} from phase 5's "
           f"prebundle, initial pair {MAIN_INITIAL_PAIR}")
     phase_full_sfm()
+
+    phase("10. dmrecon with each solver, card against CPU, on phase 7's scene")
+    phase_dmrecon_card_vs_cpu()
+
+    phase(f"11. dmrecon -s2, {MAIN_VIEWS} views of {MAIN_WIDTH}x{MAIN_HEIGHT} (depth maps of "
+          f"{MAIN_WIDTH // 4}x{MAIN_HEIGHT // 4})")
+    phase_full_dmrecon()
+
+    phase("12. scene2pset -F2 on phase 11's depth maps")
+    phase_pointset()
 
     replaces = "mve_tpu/ops/pallas_matching.py:27"
     kernels = [

@@ -1,8 +1,8 @@
 """mve_tpu_torch — the PyTorch/CUDA port of mve_tpu for NVIDIA Hopper.
 
 The package mirrors mve_tpu's layout so each module's counterpart is easy
-to find (core/, sfm/, sfm/bundler/, ops/, apps/, utils/). Plain tensor
-code is PyTorch; the hand-written kernels so far are the fused
+to find (core/, sfm/, sfm/bundler/, mvs/, ops/, apps/, utils/). Plain
+tensor code is PyTorch; the hand-written kernels so far are the fused
 descriptor top-2 search in csrc/top2.cu, a split pre-pass and a
 tensor-core product (bound in ops/top2.py).
 

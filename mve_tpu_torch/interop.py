@@ -2,8 +2,8 @@
 to this one, as plain data.
 
 MVE has no learned weights: what two implementations must share to be
-compared is each view's features and SfM state, the tracks and the
-options. The fields here are those of mve_tpu's Viewport, Track and
+compared is each view's features and SfM state, the tracks, the scene on
+disk and the options. The fields here are those of mve_tpu's Viewport, Track and
 option dataclasses, passed as numpy arrays and plain values, so the two
 packages meet only in the tests.
 """
@@ -15,6 +15,7 @@ from typing import Dict, List
 
 import numpy as np
 
+from .mvs.settings import Settings
 from .sfm.ba import BAOptions
 from .sfm.bundler.common import FeatureReference, Track, Viewport
 from .sfm.bundler.incremental import IncrementalOptions
@@ -111,3 +112,10 @@ def options_from_dict(d: Dict):
             _build(MatchingOptions, _with_ransac(d.get("matching", {}), "ransac_opts")),
             _build(SfmOptions, dict(sfm, incremental_opts=inc, init_pair_opts=init)),
             inc, init, _build(BAOptions, d.get("ba", {})))
+
+
+def mvs_settings_from_dict(values: Dict) -> Settings:
+    """The port's mvs.Settings from a dict of field values (mve_tpu's
+    Settings fields, e.g. dataclasses.asdict of one); unknown fields are
+    refused, as options_from_dict refuses them."""
+    return _build(Settings, dict(values))
