@@ -67,13 +67,34 @@ Phases, each printed as it runs; any failure raises and ends the run:
      multiply-adds in place of the CPU's order (its time, and how far its
      depths move); then view 0 card against CPU with phase 10's limits;
  12. scene2pset -F2 on phase 11's depth maps: point count, wall time, and
-     the PLY read back with normals, values and confidences.
+     the PLY read back with normals, values and confidences;
+ 13. fssrecon card against CPU on every FSSR_EVERY-th point of phase 12's
+     point set (the default octree path, and the streaming path in
+     several chunks) and on a scale-diverse set (a span of 100, which
+     takes the octave groups and the histogram scale filter): corner and
+     face counts, the corner sums' largest and median differences, and
+     the corners whose value changes sign or whose confidence is > 0 on
+     one side only (limits FACE_TOL, SUMS_TOL, CONF_FLIP_TOL, SIGN_TOL);
+ 14. fssrecon with default flags on phase 12's whole point set: samples,
+     scale span and evaluation path, leaves, corners and SB buckets, the
+     time split (load, octree, block expansion, device evaluation,
+     extraction), peak device memory, the evaluation again under
+     torch.profiler (busy share, top device ops; it must be bit-identical
+     to the first), and the surface against the scene's two planes
+     (SURF_TOL, SURF_GROSS_TOL);
+ 15. meshclean with default flags on phase 14's surface: time, vertex,
+     face and component counts before and after (no component under
+     1,000 vertices and no degenerate face may remain), the cleaned
+     surface against the scene's planes (a reading), and the time of the
+     Python union-find fallbacks (mesh_components, clean_mc_mesh).
+Each phase's header says how far into the script it starts.
 It prints one JSON line describing every kernel, and as its last line
 {"ok": true, "device": {...}}. It exits non-zero without a result when
 CUDA is unavailable. Scenes are written under build/chip_smoke/ and
 removed when the phases that read them are done.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -90,10 +111,17 @@ import torch
 
 import mve_tpu_torch
 from mve_tpu_torch import synthetic
-from mve_tpu_torch.apps import dmrecon, scene2pset, sfmrecon
+from mve_tpu_torch.apps import dmrecon, fssrecon, meshclean, scene2pset, sfmrecon
 from mve_tpu_torch.core import Scene
 from mve_tpu_torch.core.bundle_io import load_mve_bundle
-from mve_tpu_torch.core.mesh_io import load_mesh
+from mve_tpu_torch.core.mesh import TriangleMesh
+from mve_tpu_torch.core.mesh_io import load_mesh, save_mesh
+from mve_tpu_torch.core.mesh_tools import mesh_components
+from mve_tpu_torch.fssr import block_eval as fssr_block_eval
+from mve_tpu_torch.fssr import dual_contouring as fssr_dc
+from mve_tpu_torch.fssr import iso_octree as fssr_iso_octree
+from mve_tpu_torch.fssr import streaming as fssr_streaming
+from mve_tpu_torch.fssr.mesh_clean import clean_mc_mesh
 from mve_tpu_torch.mvs import Settings as MvsSettings
 from mve_tpu_torch.mvs import dmrecon as mvs_dmrecon
 from mve_tpu_torch.mvs import patch as mvs_patch
@@ -133,8 +161,11 @@ MAIN_VIEWS, MAIN_WIDTH, MAIN_HEIGHT = 40, 1600, 1200
 MAIN_INITIAL_PAIR = (1, 21)
 
 
+START = time.perf_counter()
+
+
 def phase(title):
-    print(f"\n== {title}", flush=True)
+    print(f"\n== {title}  [{time.perf_counter() - START:.1f} s into the script]", flush=True)
 
 
 def smi_line():
@@ -725,7 +756,12 @@ def device_profile(fn, top=0):
     """(result, wall ms, device kernel ms, top ops) of fn() under
     torch.profiler: the sum of the kernels' own time on the card against
     the host's clock, both inflated a little by the profiler, and the
-    `top` device ops with the most time as (name, ms, calls)."""
+    `top` device ops with the most time as (name, ms, calls). The device
+    events are summed from the profiler's raw events, read through the
+    private prof.profiler.kineto_results (torch 2.11): key_averages()
+    builds a Python object per event, about 50 s for each of phases 8
+    and 11 and minutes for the million events of phase 14's evaluation.
+    Where a torch version lacks that attribute, key_averages() does it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -735,10 +771,19 @@ def device_profile(fn, top=0):
         out = fn()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
-    own = [(e.key, (getattr(e, "self_device_time_total", None) or e.self_cuda_time_total) / 1e3,
-            e.count) for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    own.sort(key=lambda x: -x[1])
-    return out, wall, sum(ms for _, ms, _ in own), own[:top]
+    raw = getattr(prof.profiler, "kineto_results", None)
+    if raw is not None:
+        own = {}
+        for e in raw.events():
+            if e.device_type() == DeviceType.CUDA:
+                ms, calls = own.get(e.name(), (0.0, 0))
+                own[e.name()] = (ms + e.duration_ns() / 1e6, calls + 1)
+        tops = [(name, ms, calls) for name, (ms, calls) in own.items()]
+    else:
+        tops = [(e.key, (getattr(e, "self_device_time_total", None) or e.self_cuda_time_total) / 1e3,
+                 e.count) for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    tops.sort(key=lambda x: -x[1])
+    return out, wall, sum(ms for _, ms, _ in tops), tops[:top]
 
 
 def phase_ba():
@@ -1173,8 +1218,264 @@ def phase_pointset():
             and (mesh.vertex_values > 0).all()
             and ((mesh.vertex_confidences >= 0) & (mesh.vertex_confidences <= 1)).all()):
         raise AssertionError("scene2pset: the point set lacks points, normals, values or confidences")
-    shutil.rmtree(scene, ignore_errors=True)
     return dict(points=n, wall=wall)
+
+
+@contextlib.contextmanager
+def recording(module, name):
+    """While installed, keeps (args, kwargs, result) of every call of
+    module.name; every call still goes to the real function."""
+    real = getattr(module, name)
+    calls = []
+
+    def rec(*args, **kwargs):
+        out = real(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
+
+    setattr(module, name, rec)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+def corner_sums_run(path, dev, **kw):
+    """fssr_reconstruct(path, device=dev, **kw) with the (V, 10) corner sums
+    its evaluation hands to _normalize_sums (the in-memory paths' or the
+    streaming path's). Returns (mesh, sums, wall s, LAST_STATS, STATS)."""
+    with recording(fssr_iso_octree, "_normalize_sums") as a, \
+            recording(fssr_streaming, "_normalize_sums") as b:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mesh = fssrecon.fssr_reconstruct(str(path), verbose=False, device=dev, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    calls = a + b
+    if len(calls) != 1:
+        raise AssertionError(f"expected one evaluation, saw {len(calls)}")
+    return (mesh, calls[0][0][0], wall, dict(fssrecon.LAST_STATS),
+            dict(fssr_block_eval.STATS))
+
+
+def compare_corner_sums(card, cpu):
+    """(each column's largest relative difference (10,), the median
+    relative difference, sign flips, flips outside the limit, corners
+    with confidence > 0 on one side only) of two (V, 10) corner-sum
+    arrays: each column's difference over that column's largest
+    magnitude on the CPU. A flip is a corner with confidence > 0 on both
+    sides whose value (sum 0 over sum 1) changes sign; it is allowed
+    where the CPU's |value| is below SIGN_TOL of the median |value|."""
+    scale = np.abs(cpu).max(axis=0)
+    rel = np.abs(card - cpu) / np.where(scale > 0, scale, 1.0)
+    ca, cb = card[:, 1], cpu[:, 1]
+    both = (ca > 0) & (cb > 0)
+    va = card[both, 0] / ca[both]
+    vb = cpu[both, 0] / cb[both]
+    flip = (va < 0) != (vb < 0)
+    small = np.abs(vb) < SIGN_TOL * np.median(np.abs(vb))
+    return (rel.max(axis=0), float(np.median(rel)), int(flip.sum()), int((flip & ~small).sum()),
+            int(((ca > 0) != (cb > 0)).sum()))
+
+
+def scale_diverse_pointset(path):
+    """bench.py's fssr_scale_diverse point set (seed 5): the unit square
+    sampled at scale 0.1, and a 0.05-wide patch of it at scale 0.001 (a
+    span of 100), written as a PLY."""
+    rng = np.random.RandomState(5)
+    parts = []
+    for x0, x1, y0, y1, scale in ((0, 1, 0, 1, 0.1), (0.2, 0.25, 0.2, 0.25, 0.001)):
+        nx, ny = max(int((x1 - x0) / scale), 2), max(int((y1 - y0) / scale), 2)
+        gx, gy = np.meshgrid(np.linspace(x0, x1, nx), np.linspace(y0, y1, ny), indexing="ij")
+        parts.append((np.stack([gx.ravel(), gy.ravel(), rng.randn(gx.size) * scale * 0.01], 1),
+                      np.full(gx.size, scale)))
+    mesh = TriangleMesh()
+    mesh.vertices = np.concatenate([p for p, _ in parts]).astype(np.float32)
+    mesh.vertex_normals = np.tile(np.float32([0, 0, 1]), (len(mesh.vertices), 1))
+    mesh.vertex_values = np.concatenate([s for _, s in parts]).astype(np.float32)
+    mesh.vertex_confidences = np.ones(len(mesh.vertices), np.float32)
+    save_mesh(mesh, str(path))
+    return len(mesh.vertices)
+
+
+# Phase 13: every FSSR_EVERY-th point of phase 12's point set (52,137
+# points; the CPU's time on the default path goes with the density, and
+# every 32nd point, 130,341, took it 147 s on the H100 machine's 8 cores),
+# and its streaming chunk size (four chunks). Limits, card against CPU:
+# face counts within FACE_TOL; every column of the corner sums (value,
+# confidence, weights, derivative, colour) within SUMS_TOL of its largest
+# magnitude; confidence > 0 on one side only at no more than CONF_FLIP_TOL
+# of the corners; and a corner's sign may differ only where |value| is
+# below SIGN_TOL of the median |value| (compare_corner_sums). The final
+# card run of the first version read at most 3.740e-7 apart and 1 corner
+# of 523,983 with confidence on one side only.
+FSSR_EVERY, FSSR_STREAM_CHUNK = 80, 15_000
+FACE_TOL, SIGN_TOL, SUMS_TOL, CONF_FLIP_TOL = 1e-3, 1e-6, 1e-5, 1e-5
+
+
+def phase_fssr_card_vs_cpu():
+    """fssrecon card against CPU on three paths: the default (octree, dual
+    contouring), streaming, and a scale-diverse set (octave groups with the
+    histogram scale filter)."""
+    scene = WORK / "main"
+    full = load_mesh(str(scene / "pset-L2.ply"))
+    sub = TriangleMesh()
+    for name in ("vertices", "vertex_normals", "vertex_colors", "vertex_confidences",
+                 "vertex_values"):
+        setattr(sub, name, getattr(full, name)[::FSSR_EVERY])
+    save_mesh(sub, str(scene / "pset-sub.ply"))
+    n_div = scale_diverse_pointset(scene / "pset-diverse.ply")
+    print(f"  every {FSSR_EVERY}th point of pset-L2.ply: {sub.num_vertices()} of "
+          f"{full.num_vertices()} points; scale-diverse set: {n_div} points (span 100)", flush=True)
+    del full
+    worst = {}
+    for label, path, kw in (
+            ("default", scene / "pset-sub.ply", {}),
+            (f"stream, chunks of {FSSR_STREAM_CHUNK}", scene / "pset-sub.ply",
+             dict(stream=True, stream_chunk_size=FSSR_STREAM_CHUNK)),
+            ("scale-diverse, max_level 14", scene / "pset-diverse.ply", dict(max_level=14))):
+        runs = {dev: corner_sums_run(path, dev, **kw) for dev in ("cuda", "cpu")}
+        (mg, sg, wg, lg, bg), (mc, sc, wc, lc, _) = runs["cuda"], runs["cpu"]
+        if sg.shape != sc.shape:
+            raise AssertionError(f"{label}: {len(sg)} corners on the card, {len(sc)} on the CPU")
+        cols, rmed, flips, bad, conf_flips = compare_corner_sums(sg, sc)
+        rmax = float(cols.max())
+        fg, fc = mg.num_faces(), mc.num_faces()
+        print(f"  {label}: card {wg:.3f} s, CPU {wc:.3f} s ({torch.get_num_threads()} threads); "
+              f"{lg['n_samples'] if 'n_samples' in lg else '-'} samples, path {bg['path']}, "
+              f"{len(sc)} corners, SB buckets {bg['buckets']}; faces card {fg} / CPU {fc}; corner "
+              f"sums apart at most {rmax:.3e} (<={SUMS_TOL:g}), median {rmed:.3e} (of each "
+              f"column's largest; per column {[float(f'{c:.2e}') for c in cols]}); {conf_flips} "
+              f"corners with confidence > 0 on one side only (<={CONF_FLIP_TOL * len(sc):.2f}); "
+              f"{flips} sign flips with confidence on both sides, {bad} outside the limit",
+              flush=True)
+        if abs(fg - fc) > FACE_TOL * fc or bad or fc == 0 or rmax > SUMS_TOL \
+                or conf_flips > CONF_FLIP_TOL * len(sc):
+            raise AssertionError(f"fssrecon {label}: card and CPU disagree")
+        worst[label] = (rmax, flips, fg, fc)
+    return worst
+
+
+# Phase 14's limits against the scene: each surface vertex's distance to
+# the nearer of the scene's two planes (scene_planes) along z, over its
+# distance to the nearest camera centre; the median within SURF_TOL and at
+# most SURF_GROSS_TOL of the vertices more than GROSS_OFF off. The first
+# card run read a median of 3.841e-4 and 3.1% more than 5% off; the limits
+# are about twice that. Phase 15 reads the same of the cleaned surface.
+SURF_TOL, SURF_GROSS_TOL = 1e-3, 0.06
+
+
+def surface_truth_errors(scene, vertices):
+    """(median, share more than GROSS_OFF off) of the vertices' relative
+    distances to the scene's two planes."""
+    R, s, t, planes = scene_planes(scene)
+    _, centres = bundle_centres(load_mve_bundle(str(scene / "synth_0.out")))
+    centres = s * centres @ R.T + t
+    p = s * vertices.astype(np.float64) @ R.T + t
+    off = np.min([np.abs(p[:, 0] * a + p[:, 1] * b + c - p[:, 2]) for a, b, c in planes], axis=0)
+    near = np.full(len(p), np.inf)
+    for c in centres:
+        near = np.minimum(near, np.linalg.norm(p - c, axis=1))
+    rel = off / near
+    return float(np.median(rel)), float((rel > GROSS_OFF).mean())
+
+
+def phase_full_fssr():
+    """fssrecon with default flags on phase 12's whole point set."""
+    scene = WORK / "main"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with recording(fssr_dc, "build_octree") as octrees, \
+            recording(fssr_block_eval, "evaluate_positions_blocked") as evals:
+        t0 = time.perf_counter()
+        mesh = fssrecon.fssr_reconstruct(str(scene / "pset-L2.ply"), str(scene / "surf.ply"),
+                                         verbose=False, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    st, bst = dict(fssrecon.LAST_STATS), dict(fssr_block_eval.STATS)
+    octree = octrees[0][2]
+    (samples, positions), _, sums = evals[0]
+    scale = samples.scale.astype(np.float64)
+    device_ms = bst["dispatch_ms"] + bst["sync_ms"]
+    print(f"  fssr_reconstruct(device='cuda'): {wall:.3f} s; {st['n_samples']} samples, smax/smin "
+          f"{scale.max() / scale.min():.3f} (median scale {np.median(scale):.6g}), evaluation path "
+          f"{bst['path']}; {len(octree.leaf_level)} leaves (levels {np.unique(octree.leaf_level).tolist()}),"
+          f" {st['n_voxels']} corners, {bst['rows']} eval rows, {bst['pairs']} (row, voxel, sample) "
+          f"elements; SB buckets (SB: dispatches) {bst['buckets']}", flush=True)
+    print(f"  time: load {st['load_ms']} ms, octree {st['octree_ms']} ms, evaluation {st['eval_ms']} "
+          f"ms = block expansion (host) {bst['expand_ms']:.0f} ms + device evaluation (host tables "
+          f"and launches {bst['dispatch_ms']:.0f} ms, then the wait and read back "
+          f"{bst['sync_ms']:.0f} ms) + float64 sums (host) {bst['accumulate_ms']:.0f} ms + rest; "
+          f"extraction {st['extract_ms']} ms; max_memory_allocated {peak} bytes", flush=True)
+    sums2, pwall, busy, tops = device_profile(
+        lambda: fssr_block_eval.evaluate_positions_blocked(samples, positions, device="cuda"),
+        top=10)
+    dev2 = fssr_block_eval.STATS["dispatch_ms"] + fssr_block_eval.STATS["sync_ms"]
+    identical = np.array_equal(sums, sums2)
+    print(f"  the evaluation again, under torch.profiler: {pwall:.1f} ms, of which device kernels "
+          f"{busy:.1f} ms ({100 * busy / pwall:.1f}% busy over the whole evaluation, "
+          f"{100 * busy / dev2:.1f}% over its device part of {dev2:.0f} ms); bit-identical to the "
+          f"first: {identical}; top device ops:", flush=True)
+    for name, ms, calls in tops:
+        print(f"    {ms:9.2f} ms {calls:6d} calls  {name[:110]}", flush=True)
+    surf = load_mesh(str(scene / "surf.ply"))
+    med, gross = surface_truth_errors(scene, surf.vertices)
+    print(f"  wrote surf.ply: {surf.num_vertices()} vertices, {surf.num_faces()} faces; against the "
+          f"scene's planes (distance along z over the distance to the nearest camera): median "
+          f"{med:.3e} (<={SURF_TOL:g}), share more than {GROSS_OFF:g} off {gross:.5f} "
+          f"(<={SURF_GROSS_TOL:g})", flush=True)
+    if not identical or surf.num_faces() == 0 or surf.num_faces() != mesh.num_faces() \
+            or not np.isfinite(surf.vertices).all():
+        raise AssertionError("fssrecon: two card evaluations differ, or the surface is empty")
+    if med > SURF_TOL or gross > SURF_GROSS_TOL:
+        raise AssertionError("fssrecon: the surface is off the scene's planes")
+    return dict(wall=wall, stats=st, block_stats=bst, peak=peak, busy=busy, pwall=pwall,
+                device_ms=device_ms)
+
+
+def mesh_summary(mesh, labels):
+    """(vertices, faces, component sizes, degenerate faces) of a mesh with
+    its mesh_components labels: a face is degenerate where it repeats a
+    vertex or has zero area."""
+    sizes = np.bincount(np.unique(labels, return_inverse=True)[1]) if len(labels) else np.zeros(0)
+    f, v = mesh.faces, mesh.vertices.astype(np.float64)
+    area2 = np.linalg.norm(np.cross(v[f[:, 1]] - v[f[:, 0]], v[f[:, 2]] - v[f[:, 0]]), axis=1)
+    repeat = (f[:, 0] == f[:, 1]) | (f[:, 1] == f[:, 2]) | (f[:, 0] == f[:, 2])
+    return mesh.num_vertices(), mesh.num_faces(), sizes, int((repeat | (area2 == 0)).sum())
+
+
+def phase_meshclean():
+    """meshclean with default flags on phase 14's surface; then the scene
+    goes."""
+    scene = WORK / "main"
+    before = load_mesh(str(scene / "surf.ply"))
+    t0 = time.perf_counter()
+    labels = mesh_components(before)
+    comp_ms = 1e3 * (time.perf_counter() - t0)
+    nv, nf, sizes, degenerate = mesh_summary(before, labels)
+    t0 = time.perf_counter()
+    collapsed = clean_mc_mesh(before)
+    clean_ms = 1e3 * (time.perf_counter() - t0)
+    print(f"  surf.ply: {nv} vertices, {nf} faces, {len(sizes)} components (smallest "
+          f"{sizes.min() if len(sizes) else 0}, {(sizes < 1000).sum()} below 1,000 vertices), "
+          f"{degenerate} degenerate faces; mesh_components (Python union-find) {comp_ms:.0f} ms, "
+          f"clean_mc_mesh alone (Python union-find collapses) {clean_ms:.0f} ms, {collapsed} "
+          f"collapses", flush=True)
+    t0 = time.perf_counter()
+    meshclean.mesh_clean(str(scene / "surf.ply"), str(scene / "clean.ply"), verbose=False)
+    wall = time.perf_counter() - t0
+    clean = load_mesh(str(scene / "clean.ply"))
+    nv, nf, sizes, degenerate = mesh_summary(clean, mesh_components(clean))
+    med, gross = surface_truth_errors(scene, clean.vertices)
+    print(f"  mesh_clean (default flags): {wall:.3f} s; clean.ply {nv} vertices, {nf} faces, "
+          f"{len(sizes)} components (smallest {sizes.min() if len(sizes) else 0}), {degenerate} "
+          f"degenerate faces; against the scene's planes: median {med:.3e}, share more than "
+          f"{GROSS_OFF:g} off {gross:.5f}", flush=True)
+    if nf == 0 or (sizes < 1000).any() or degenerate:
+        raise AssertionError("meshclean: a small component or a degenerate face remains")
+    shutil.rmtree(scene, ignore_errors=True)
+    return dict(wall=wall, vertices=nv, faces=nf, components=len(sizes))
 
 
 def main() -> int:
@@ -1245,6 +1546,16 @@ def main() -> int:
 
     phase("12. scene2pset -F2 on phase 11's depth maps")
     phase_pointset()
+
+    phase(f"13. fssrecon card against CPU: every {FSSR_EVERY}th point of phase 12's point set "
+          f"(default and streaming), and a scale-diverse set")
+    phase_fssr_card_vs_cpu()
+
+    phase("14. fssrecon on phase 12's whole point set")
+    phase_full_fssr()
+
+    phase("15. meshclean on phase 14's surface")
+    phase_meshclean()
 
     replaces = "mve_tpu/ops/pallas_matching.py:27"
     kernels = [

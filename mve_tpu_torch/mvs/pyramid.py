@@ -5,11 +5,15 @@ Caches per-view grayscale level images so neighbor views are converted
 and downsampled once per dmrecon batch instead of once per reference
 view. Entries are plain numpy arrays; eviction by generation when a new
 scene/embedding key appears (the reference's cache keeps one scene too).
+The scene is held by a weak reference and compared by identity: mve_tpu
+keys on id(scene), which a later Scene can reuse once the first is freed,
+and then serves the freed scene's images.
 """
 
 from __future__ import annotations
 
 import threading
+import weakref
 from typing import Dict, Tuple
 
 import numpy as np
@@ -47,17 +51,18 @@ def half_size_gaussian_np(img: np.ndarray) -> np.ndarray:
 
 class ImagePyramidCache:
     _lock = threading.Lock()
-    _key: Tuple[int, str] | None = None
+    _scene: weakref.ref | None = None
+    _embedding: str | None = None
     _levels: Dict[Tuple[int, int], np.ndarray] = {}
 
     @classmethod
     def get_level(cls, scene, view_id: int, embedding: str, level: int,
                   to_gray) -> np.ndarray:
         """Return the level-`level` grayscale image of a view, cached."""
-        key = (id(scene), embedding)
         with cls._lock:
-            if cls._key != key:
-                cls._key = key
+            if (cls._scene is None or cls._scene() is not scene
+                    or cls._embedding != embedding):
+                cls._scene, cls._embedding = weakref.ref(scene), embedding
                 cls._levels = {}
             cached = cls._levels.get((view_id, level))
         if cached is not None:
@@ -84,5 +89,5 @@ class ImagePyramidCache:
     @classmethod
     def cleanup(cls) -> None:
         with cls._lock:
-            cls._key = None
+            cls._scene = cls._embedding = None
             cls._levels = {}
