@@ -86,7 +86,32 @@ Phases, each printed as it runs; any failure raises and ends the run:
      face and component counts before and after (no component under
      1,000 vertices and no degenerate face may remain), the cleaned
      surface against the scene's planes (a reading), and the time of the
-     Python union-find fallbacks (mesh_components, clean_mc_mesh).
+     Python union-find fallbacks (mesh_components, clean_mc_mesh);
+ 16. makescene: phase 5's 40 views written as photos (JPEG with an EXIF
+     focal length, and PNG), imported with -i, then with -m at a quarter
+     of the pixels, then a Bundler workspace of BUNDLER_VIEWS views of
+     phase 9's synth_0.out and undistorted images (k2/k4 undistortion),
+     each on the card and on the CPU: the two scene directories must be
+     byte-identical, but for thumbnail pixels one level apart at a
+     rounding tie, which are counted;
+ 17. sfmrecon --cascade-hashing --skip-sfm on phase 16's 40 views on the
+     card (time, pairs kept, matches per pair) beside phase 5's batched
+     prebundle, with the top2 launches of that path; then on phase 4's
+     views the cascade's hash bits card against CPU (flips counted, each
+     within 1e-5 of zero) and its matches (the same pairs, each with at
+     least 99% of the CPU's matches);
+ 18. sfmrecon --skip-sfm --num-processes 2 as two processes on the card
+     and as two ranks on the CPU, on phase 4's scene: the merged
+     prebundles card against CPU with phase 4's limits;
+ 19. featurerecon on FEATURERECON_VIEWS of phase 9's views and their
+     cameras: time, points, their distance to the scene's planes (median
+     within TRUTH_TOL), the top2 launches of the per-pair matcher, and its
+     first calls held against the plain version;
+ 20. the canonical command line from a folder of 4 photos of 480x360,
+     each app as `python -m mve_tpu_torch.apps.<app>` on the card
+     (makescene, sfmrecon, dmrecon, scene2pset, fssrecon, meshclean), then
+     prebundle, bundle2pset, mesh2pset, meshconvert, meshalign,
+     sceneupgrade and sceneinspect on their outputs: each must exit 0.
 Each phase's header says how far into the script it starts.
 It prints one JSON line describing every kernel, and as its last line
 {"ok": true, "device": {...}}. It exits non-zero without a result when
@@ -102,6 +127,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -111,8 +137,9 @@ import torch
 
 import mve_tpu_torch
 from mve_tpu_torch import synthetic
-from mve_tpu_torch.apps import dmrecon, fssrecon, meshclean, scene2pset, sfmrecon
-from mve_tpu_torch.core import Scene
+from mve_tpu_torch.apps import (dmrecon, featurerecon, fssrecon, makescene, meshclean, scene2pset,
+                                sfmrecon)
+from mve_tpu_torch.core import Scene, image_io, image_tools
 from mve_tpu_torch.core.bundle_io import load_mve_bundle
 from mve_tpu_torch.core.mesh import TriangleMesh
 from mve_tpu_torch.core.mesh_io import load_mesh, save_mesh
@@ -129,6 +156,7 @@ from mve_tpu_torch.mvs import sweep_solver as mvs_sweep
 from mve_tpu_torch.mvs import view_selection as mvs_vs
 from mve_tpu_torch.ops import cuda_build, top2 as top2_mod
 from mve_tpu_torch.ops.matching import descriptor_top2, descriptor_top2_pairs, split_tf32
+from mve_tpu_torch.sfm import matching as sfm_matching
 from mve_tpu_torch.sfm.ba import BAOptions, optimize_arrays
 from mve_tpu_torch.sfm.bundler import Intrinsics, IntrinsicsOptions, matching_batched
 from mve_tpu_torch.sfm.bundler import init_pair as init_pair_mod
@@ -136,9 +164,10 @@ from mve_tpu_torch.sfm.bundler.common import Viewport, load_prebundle
 from mve_tpu_torch.sfm.bundler.features import Features
 from mve_tpu_torch.sfm.bundler.incremental import _determine_similarity
 from mve_tpu_torch.sfm.bundler.init_pair import InitialPair
-from mve_tpu_torch.sfm.bundler.matching import Matching
+from mve_tpu_torch.sfm.bundler.matching import Matching, MatchingOptions
 from mve_tpu_torch.sfm.bundler.pipeline import SfmOptions
 from mve_tpu_torch.sfm.bundler.tracks import Tracks
+from mve_tpu_torch.sfm.cascade_hashing import CascadeHashing
 
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
@@ -403,19 +432,14 @@ def load_scene_result(scene):
     return load_prebundle(os.path.join(scene, "prebundle.sfm"))
 
 
-def phase_card_vs_cpu():
-    base = WORK / "small"
-    shutil.rmtree(base, ignore_errors=True)
-    synthetic.make_two_plane_scene(str(base / "cuda"), n_views=4, width=480, height=360,
-                                   seed=7, with_cameras=False)
-    shutil.copytree(base / "cuda", base / "cpu")
-    for dev in ("cuda", "cpu"):
-        t0 = time.perf_counter()
-        sfmrecon.sfm_reconstruct(str(base / dev), skip_sfm=True, verbose=False, device=dev)
-        print(f"  {dev}: {time.perf_counter() - t0:.3f} s, {sfmrecon.LAST_TIMINGS}", flush=True)
-    gv, gm = load_scene_result(str(base / "cuda"))
-    cv, cm = load_scene_result(str(base / "cpu"))
-    tol = 0.5 / 480.0  # 0.5 px in normalised coordinates
+def compare_prebundles(card, cpu, width):
+    """The prebundles of two scenes, card against CPU: per view, at least
+    99% of the CPU's keypoints have a card keypoint within 0.5 px; the same
+    connected pairs; per pair, at least 95% of the CPU's matches reproduced
+    with both ends within 0.5 px. Raises if not."""
+    gv, gm = load_scene_result(str(card))
+    cv, cm = load_scene_result(str(cpu))
+    tol = 0.5 / width  # 0.5 px in normalised coordinates
     for i, (g, c) in enumerate(zip(gv, cv)):
         dist = np.linalg.norm(c.positions[:, None] - g.positions[None], axis=-1)
         recall = float((dist.min(axis=1) < tol).mean())
@@ -439,6 +463,19 @@ def phase_card_vs_cpu():
               f"reproduced {rate:.4f} (>=0.95)", flush=True)
         if rate < 0.95:
             raise AssertionError(f"pair {key}: match reproduction {rate:.4f} < 0.95")
+
+
+def phase_card_vs_cpu():
+    base = WORK / "small"
+    shutil.rmtree(base, ignore_errors=True)
+    synthetic.make_two_plane_scene(str(base / "cuda"), n_views=4, width=480, height=360,
+                                   seed=7, with_cameras=False)
+    shutil.copytree(base / "cuda", base / "cpu")
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        sfmrecon.sfm_reconstruct(str(base / dev), skip_sfm=True, verbose=False, device=dev)
+        print(f"  {dev}: {time.perf_counter() - t0:.3f} s, {sfmrecon.LAST_TIMINGS}", flush=True)
+    compare_prebundles(base / "cuda", base / "cpu", 480)
 
     # The per-pair matcher (bundler.Matching: ops/top2.top2 per pair, bf16
     # for 128-D SIFT and float32 for 64-D SURF on the card) on the same
@@ -1446,8 +1483,7 @@ def mesh_summary(mesh, labels):
 
 
 def phase_meshclean():
-    """meshclean with default flags on phase 14's surface; then the scene
-    goes."""
+    """meshclean with default flags on phase 14's surface."""
     scene = WORK / "main"
     before = load_mesh(str(scene / "surf.ply"))
     t0 = time.perf_counter()
@@ -1474,9 +1510,405 @@ def phase_meshclean():
           f"{GROSS_OFF:g} off {gross:.5f}", flush=True)
     if nf == 0 or (sizes < 1000).any() or degenerate:
         raise AssertionError("meshclean: a small component or a degenerate face remains")
-    shutil.rmtree(scene, ignore_errors=True)
     return dict(wall=wall, vertices=nv, faces=nf, components=len(sizes))
 
+
+
+# ---------------------------------------------------------------------------
+# Slice 6: makescene and the bundle importers, cascade hashing, several
+# processes, featurerecon and the command line from a folder of photos.
+# ---------------------------------------------------------------------------
+
+# Views of phase 16's Bundler import (exported from phase 9's scene). Cut
+# from 40 for time: each view's k2/k4 undistortion and PNG writes run on
+# the card and on the CPU; the image size is not cut.
+BUNDLER_VIEWS = 10
+# Views of phase 19's featurerecon, the first of phase 9's scene. Cut
+# from 40 for time (60.1 s at 40 views on an H100, 17.2 s at 20: PERF.md);
+# the image size is not cut. Its floor of triangulated points (6,206 were
+# measured at 20 views).
+FEATURERECON_VIEWS = 20
+FEATURERECON_MIN_POINTS = 1000
+# A thumbnail pixel may round the other way, card against CPU, where its
+# value lies within TIE of k + 0.5 (cuBLAS and the CPU sum the resize in
+# other orders); any other difference between two scene trees fails.
+TIE = 1e-3
+
+
+def tree_files(root):
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, fs in os.walk(root) for f in fs)
+
+
+def compare_scene_trees(card, cpu):
+    """Every file of two scene directories byte for byte; a thumbnail may
+    differ by one level at a rounding tie. Returns (files, thumbnail pixels
+    that differ); raises on any other difference."""
+    files = tree_files(card)
+    if files != tree_files(cpu):
+        raise AssertionError(f"{card} and {cpu} hold different files")
+    ties = 0
+    for rel in files:
+        if (Path(card) / rel).read_bytes() == (Path(cpu) / rel).read_bytes():
+            continue
+        if os.path.basename(rel) != "thumbnail.png":
+            raise AssertionError(f"{rel} differs, card against CPU")
+        view = Path(cpu) / os.path.dirname(rel)
+        orig = next(view.glob("original.*"))
+        a, b = (image_io.load_image(str(Path(d) / rel)).astype(int) for d in (card, cpu))
+        bad = np.nonzero(a != b)
+        value = image_tools.create_thumbnail(
+            image_io.load_image(str(orig)).astype(np.float32), device="cpu")[bad]
+        frac = value - np.floor(value)
+        if np.abs(a - b).max() > 1 or not np.all(np.abs(frac - 0.5) < TIE):
+            raise AssertionError(f"{rel}: thumbnail pixels differ away from a rounding tie")
+        ties += len(bad[0])
+    return len(files), ties
+
+
+def export_bundler_workspace(scene, out, n_views):
+    """A Noah Bundler workspace (bundle/bundle.out, list.txt, images/) of
+    the first n_views views of a scene: their cameras from its synth_0.out
+    and their undistorted images."""
+    bundle = load_mve_bundle(str(scene / "synth_0.out"))
+    (out / "bundle").mkdir(parents=True)
+    (out / "images").mkdir()
+    lines = ["# Bundle file v0.3"]
+    feats = [f for f in bundle.features if any(r.view_id < n_views for r in f.refs)]
+    lines.append(f"{n_views} {len(feats)}")
+    for cam in bundle.cameras[:n_views]:
+        lines += [f"{cam.flen:.9g} {cam.dist[0]:.9g} {cam.dist[1]:.9g}",
+                  *(" ".join(f"{v:.9g}" for v in cam.rot.reshape(-1)[k:k + 3]) for k in (0, 3, 6)),
+                  " ".join(f"{v:.9g}" for v in cam.trans)]
+    for f in feats:
+        refs = [r for r in f.refs if r.view_id < n_views]
+        lines += [" ".join(f"{v:.9g}" for v in f.pos),
+                  " ".join(str(int(c * 255.0 + 0.5)) for c in f.color),
+                  f"{len(refs)} " + " ".join(f"{r.view_id} {r.feature_id} 0 0" for r in refs)]
+    (out / "bundle" / "bundle.out").write_text("\n".join(lines) + "\n")
+    names = []
+    for i, view in enumerate(Scene(str(scene)).get_views()[:n_views]):
+        name = f"view_{i:04d}.png"
+        shutil.copyfile(Path(view.get_directory()) / "undistorted.png", out / "images" / name)
+        names.append(f"images/{name}")
+    (out / "list.txt").write_text("\n".join(names) + "\n")
+
+
+def timed_import(fn, *args, **kwargs):
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(None):
+        fn(*args, **kwargs)
+    if kwargs.get("device") == "cuda":
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def phase_makescene():
+    """makescene -i, -m and a Bundler import, each on the card and on the
+    CPU; the scene directories must be byte-identical (but for thumbnail
+    pixels at rounding ties, counted)."""
+    base = WORK / "makescene"
+    shutil.rmtree(base, ignore_errors=True)
+    photos = base / "photos"
+    photos.mkdir(parents=True)
+    t0 = time.perf_counter()
+    # Phase 5's renders (synthetic.make_photo_folder's images, which take
+    # about a second each to render on the host), as photos.
+    for i, view in enumerate(Scene(str(WORK / "main")).get_views()):
+        jpeg = i % 2 == 0
+        synthetic.save_photo(view.get_image("original"),
+                             str(photos / f"photo_{i:03d}.{'jpg' if jpeg else 'png'}"),
+                             35.0 if jpeg else None)
+    print(f"  {MAIN_VIEWS} photos of {MAIN_WIDTH}x{MAIN_HEIGHT} (JPEG with EXIF focal length "
+          f"and PNG, alternately) written in {time.perf_counter() - t0:.3f} s", flush=True)
+    out = {}
+    max_pixels = MAIN_WIDTH * MAIN_HEIGHT // 4
+    for label, run in (
+            ("-i", lambda d: timed_import(makescene.import_images, str(photos),
+                                          str(base / f"i_{d}"), device=d)),
+            (f"-i -m {max_pixels}", lambda d: timed_import(
+                makescene.import_images, str(photos), str(base / f"m_{d}"),
+                max_pixels=max_pixels, device=d))):
+        walls = {d: run(d) for d in ("cuda", "cpu")}
+        key = "i" if label == "-i" else "m"
+        n, ties = compare_scene_trees(base / f"{key}_cuda", base / f"{key}_cpu")
+        out[key] = dict(card_s=walls["cuda"], cpu_s=walls["cpu"], files=n, tie_pixels=ties)
+        print(f"  makescene {label}: card {walls['cuda']:.3f} s, CPU {walls['cpu']:.3f} s; "
+              f"{n} files, byte-identical but for {ties} thumbnail pixels at rounding ties",
+              flush=True)
+    views = sorted(os.listdir(base / "i_cuda" / "views"))
+    exif = sum((base / "i_cuda" / "views" / v / "exif.blob").is_file() for v in views)
+    if len(views) != MAIN_VIEWS or exif != MAIN_VIEWS // 2:
+        raise AssertionError(f"makescene -i: {len(views)} views, {exif} EXIF blobs")
+    small = image_io.load_image(str(base / "m_cuda" / "views" / views[1] / "original.png"))
+    if small.shape[0] * small.shape[1] > max_pixels:
+        raise AssertionError(f"makescene -m: {small.shape} is above {max_pixels} pixels")
+
+    ws = base / "bundler"
+    export_bundler_workspace(WORK / "main", ws, BUNDLER_VIEWS)
+    walls = {d: timed_import(makescene.import_bundle_noah_ps, str(ws), str(base / f"b_{d}"),
+                             device=d) for d in ("cuda", "cpu")}
+    n, ties = compare_scene_trees(base / "b_cuda", base / "b_cpu")
+    out["b"] = dict(card_s=walls["cuda"], cpu_s=walls["cpu"], files=n, tie_pixels=ties)
+    print(f"  makescene on a Bundler workspace of phase 9's first {BUNDLER_VIEWS} views "
+          f"(k2/k4 undistortion): card {walls['cuda']:.3f} s, CPU {walls['cpu']:.3f} s; {n} "
+          f"files, byte-identical but for {ties} thumbnail pixels", flush=True)
+    if ties:
+        raise AssertionError("a Bundler import writes no thumbnail, yet one differs")
+    return out
+
+
+def phase_cascade(main_run):
+    """sfmrecon --cascade-hashing --skip-sfm on phase 16's 40 views on the
+    card, beside phase 5's batched prebundle; then the cascade card against
+    CPU on phase 4's views, on the same features."""
+    scene = WORK / "makescene" / "i_cuda"
+    torch.cuda.synchronize()
+    top2_mod.launches = top2_mod.split_launches = 0
+    t0 = time.perf_counter()
+    sfmrecon.sfm_reconstruct(str(scene), skip_sfm=True, use_cascade_hashing=True, verbose=False,
+                             device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, split_launches = top2_mod.launches, top2_mod.split_launches
+    t = dict(sfmrecon.LAST_TIMINGS)
+    if launches <= 0 or split_launches <= 0:
+        raise AssertionError("the cascade-hashing path launched a top2 kernel no time")
+    rows = {}
+    for name, path, run in (("cascade (phase 16's scene)", scene, dict(wall=wall, timings=t)),
+                            ("batched (phase 5)", WORK / "main", main_run)):
+        vps, matching = load_scene_result(str(path))
+        counts = np.array([len(m.matches) for m in matching])
+        views = {v for m in matching for v in (m.view_1_id, m.view_2_id)}
+        rows[name] = dict(wall_s=run["wall"], features_ms=run["timings"]["features_ms"],
+                          matching_ms=run["timings"]["matching_ms"], pairs=len(matching),
+                          matches_mean=float(counts.mean()), matches_median=float(np.median(counts)),
+                          matches_min=int(counts.min()), views=len(views))
+        print(f"  {name}: {run['wall']:.3f} s (features {run['timings']['features_ms']} ms, "
+              f"matching {run['timings']['matching_ms']} ms), {len(matching)} of "
+              f"{MAIN_VIEWS * (MAIN_VIEWS - 1) // 2} pairs kept, "
+              f"matches per pair mean {counts.mean():.1f}, median {np.median(counts):.0f}, min "
+              f"{counts.min()}; {len(views)} views in a pair", flush=True)
+        if len(views) != MAIN_VIEWS or counts.min() < 12:
+            raise AssertionError(f"{name}: {len(views)} views in a pair, fewest matches "
+                                 f"{counts.min()}")
+    print(f"  top2.launches {launches}, top2.split_launches {split_launches} (low-res "
+          f"prefilter and SURF blocks, both directions)", flush=True)
+
+    tex_far = synthetic.make_texture(seed=7, smooth_sigma=3.0)
+    tex_near = synthetic.make_texture(seed=107, smooth_sigma=3.0)
+    imgs = [synthetic.render_two_plane_view(tex_far, tex_near, cam, 480, 360)
+            for cam in synthetic.make_cameras(4, spread=0.55, seed=7)]
+    vps = [Viewport() for _ in imgs]
+    Features(device="cuda").compute_batched(imgs, vps)
+    hashers = {}
+    for dev in ("cuda", "cpu"):
+        hashers[dev] = CascadeHashing(device=dev)
+        hashers[dev].init([vp.descriptors for vp in vps])
+    flipped = bits = 0
+    for i, vp in enumerate(vps):
+        x = hashers["cuda"].codes(i) ^ hashers["cpu"].codes(i)
+        rows_, lanes, pos = np.nonzero((x[..., None] >> np.arange(32, dtype=np.uint32)) & 1)
+        z = (vp.descriptors.astype(np.float64) - hashers["cpu"]._mean) @ \
+            hashers["cpu"].proj.astype(np.float64)
+        if len(rows_) and np.abs(z[rows_, lanes * 32 + pos]).max() >= 1e-5:
+            raise AssertionError("a hash bit flipped, card against CPU, away from zero")
+        flipped += len(rows_)
+        bits += x.size * 32
+    found = {}
+    for dev in ("cuda", "cpu"):
+        found[dev] = {(m.view_1_id, m.view_2_id): m.matches for m in Matching(
+            MatchingOptions(use_cascade_hashing=True), device=dev).compute(vps, seed=0)}
+    print(f"  cascade card against CPU on phase 4's views: {flipped} of {bits} hash bits "
+          f"flipped (each within 1e-5 of zero); pairs cuda {sorted(found['cuda'])}, cpu "
+          f"{sorted(found['cpu'])}", flush=True)
+    if set(found["cuda"]) != set(found["cpu"]):
+        raise AssertionError("cascade matcher: connected pairs differ, card against CPU")
+    worst = 1.0
+    for key, c in sorted(found["cpu"].items()):
+        want, got = set(map(tuple, c)), set(map(tuple, found["cuda"][key]))
+        rate = len(got & want) / max(len(want), 1)
+        worst = min(worst, rate)
+        print(f"  cascade pair {key}: cpu {len(want)} / cuda {len(got)} matches, identical "
+              f"{rate:.4f} (>=0.99, tests/test_torch_cascade.py's tolerance)", flush=True)
+        if rate < 0.99 or len(got) > 1.01 * len(want) + 1:
+            raise AssertionError(f"cascade pair {key}: {rate:.4f} of the matches identical")
+    return dict(launches=launches, split_launches=split_launches, rows=rows,
+                flipped_bits=flipped, bits=bits, worst_pair_identical=worst)
+
+
+def run_app(app, *argv, device=None, timeout=900):
+    """python -m mve_tpu_torch.apps.<app> argv... from the checkout's root;
+    raises unless it exits 0. Returns its wall time."""
+    cmd = [sys.executable, "-m", f"mve_tpu_torch.apps.{app}", *map(str, argv)]
+    if device:
+        cmd += ["--device", device]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd)} exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    return time.perf_counter() - t0
+
+
+def phase_two_processes():
+    """sfmrecon --skip-sfm --num-processes 2: two processes on the one
+    card, then two ranks on the CPU, on phase 4's scene; the merged
+    prebundles card against CPU with phase 4's limits."""
+    base = WORK / "two_processes"
+    shutil.rmtree(base, ignore_errors=True)
+    synthetic.make_two_plane_scene(str(base / "cuda"), n_views=4, width=480, height=360,
+                                   seed=7, with_cameras=False)
+    shutil.copytree(base / "cuda", base / "cpu")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "mve_tpu_torch.apps.sfmrecon", "--skip-sfm", "--num-processes",
+         "2", "--process-id", str(k), str(base / "cuda")], cwd=ROOT, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True) for k in range(2)]
+    try:
+        errs = [p.communicate(timeout=600)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    card_s = time.perf_counter() - t0
+    for k, (p, err) in enumerate(zip(procs, errs)):
+        if p.returncode != 0:
+            raise AssertionError(f"sfmrecon process {k} exited {p.returncode}:\n{err[-3000:]}")
+    t0 = time.perf_counter()
+    ranks = [threading.Thread(target=sfmrecon.sfm_reconstruct, args=(str(base / "cpu"),),
+                              kwargs=dict(skip_sfm=True, verbose=False, process_id=k,
+                                          num_processes=2, device="cpu")) for k in (1, 0)]
+    for r in ranks:
+        r.start()
+    for r in ranks:
+        r.join(timeout=600)
+    cpu_s = time.perf_counter() - t0
+    left = [f for d in ("cuda", "cpu") for f in os.listdir(base / d) if ".part" in f]
+    print(f"  two processes on the card {card_s:.3f} s (with their start-up), two CPU ranks "
+          f"{cpu_s:.3f} s; part files left {left}", flush=True)
+    if left or any(r.is_alive() for r in ranks):
+        raise AssertionError("a rank did not finish, or its part files were not merged")
+    compare_prebundles(base / "cuda", base / "cpu", 480)
+    shutil.rmtree(base, ignore_errors=True)
+    return dict(card_s=card_s, cpu_s=cpu_s)
+
+
+class _Top2Recorder:
+    """Wraps sfm.matching.top2 (the per-pair matcher's kernel wrapper):
+    counts every call and keeps the inputs of the first `keep`."""
+
+    def __init__(self, fn, keep):
+        self.fn, self.keep, self.calls, self.n = fn, keep, [], 0
+
+    def __call__(self, q, r, n_refs, bf16):
+        self.n += 1
+        if len(self.calls) < self.keep:
+            self.calls.append((q, r, n_refs, bf16))
+        return self.fn(q, r, n_refs, bf16)
+
+
+def phase_featurerecon():
+    """featurerecon on the first FEATURERECON_VIEWS of phase 9's views of
+    1600x1200 and their cameras (a copy of each view's meta.ini and
+    undistorted image)."""
+    src, scene = WORK / "main", WORK / "featurerecon"
+    shutil.rmtree(scene, ignore_errors=True)
+    for view in sorted(os.listdir(src / "views"))[:FEATURERECON_VIEWS]:
+        (scene / "views" / view).mkdir(parents=True)
+        for name in ("meta.ini", "undistorted.png"):
+            shutil.copyfile(src / "views" / view / name, scene / "views" / view / name)
+    recorder = _Top2Recorder(sfm_matching.top2, keep=12)
+    sfm_matching.top2 = recorder
+    torch.cuda.synchronize()
+    top2_mod.launches = top2_mod.split_launches = 0
+    t0 = time.perf_counter()
+    try:
+        featurerecon.feature_reconstruct(str(scene), verbose=False, device="cuda")
+        torch.cuda.synchronize()
+    finally:
+        sfm_matching.top2 = recorder.fn
+    wall = time.perf_counter() - t0
+    launches, split_launches = top2_mod.launches, top2_mod.split_launches
+    if launches <= 0 or split_launches <= 0:
+        raise AssertionError("featurerecon launched a top2 kernel no time")
+    bundle = load_mve_bundle(str(scene / "synth_0.out"))
+    truth = load_mve_bundle(str(src / "synth_0.out"))
+    for c, want in zip(bundle.cameras, truth.cameras):
+        if c.flen != want.flen or not np.array_equal(c.rot, want.rot):
+            raise AssertionError("featurerecon moved a camera")
+    pts = bundle.feature_positions()
+    med, gross = surface_truth_errors(src, pts)
+    print(f"  feature_reconstruct(device='cuda'): {wall:.3f} s, {len(pts)} points "
+          f"({truth.get_num_features()} tracks in phase 9's bundle); against the scene's "
+          f"planes: median {med:.3e} (<={TRUTH_TOL}), share more than {GROSS_OFF:g} off "
+          f"{gross:.5f}", flush=True)
+    print(f"  per-pair top2 calls {recorder.n}: top2.launches {launches}, "
+          f"top2.split_launches {split_launches}", flush=True)
+    if len(pts) < FEATURERECON_MIN_POINTS or not np.isfinite(pts).all() or med > TRUTH_TOL:
+        raise AssertionError("featurerecon: too few points, or points off the scene's planes")
+    err = 0.0
+    for q, r, n_refs, bf16 in recorder.calls:
+        err = max(err, compare(f"per-pair {q.shape[0]}x{r.shape[0]}x{q.shape[1]}",
+                               top2_mod.top2(q, r, n_refs, bf16),
+                               descriptor_top2(q, r, n_refs=n_refs, use_bf16=bf16), bf16))
+    shutil.rmtree(scene, ignore_errors=True)
+    return dict(wall=wall, points=len(pts), median=med, gross=gross, launches=launches,
+                split_launches=split_launches, calls=recorder.n, max_abs_err=err)
+
+
+def phase_cli():
+    """The canonical pipeline from a folder of photos, each step as
+    `python -m mve_tpu_torch.apps.<app>` on the card; then the host apps on
+    its outputs."""
+    base = WORK / "cli"
+    shutil.rmtree(base, ignore_errors=True)
+    photos, scene = base / "photos", base / "scene"
+    synthetic.make_photo_folder(str(photos), n_views=4, width=480, height=360, seed=7)
+    steps = [("makescene", "-i", photos, scene),
+             ("sfmrecon", scene),
+             ("dmrecon", "-s1", "--local-neighbors", "3", scene),
+             ("scene2pset", "-F1", scene, base / "pset.ply"),
+             ("fssrecon", base / "pset.ply", base / "surf.ply")]
+    walls = {}
+    for app, *argv in steps:
+        walls[app] = run_app(app, *argv, device="cuda")
+    walls["meshclean"] = run_app("meshclean", base / "surf.ply", base / "clean.ply")
+    clean = load_mesh(str(base / "clean.ply"))
+    print("  " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
+          + f": clean.ply {clean.num_vertices()} vertices, {clean.num_faces()} faces", flush=True)
+    if clean.num_faces() == 0 or not (scene / "synth_0.out").is_file():
+        raise AssertionError("the command-line pipeline made no surface")
+    host = [("prebundle", scene), ("bundle2pset", scene, base / "points.ply"),
+            ("mesh2pset", base / "clean.ply", base / "clean-pset.ply"),
+            ("meshconvert", base / "clean.ply", base / "clean.off"),
+            ("meshalign", base / "clean.ply", base / "surf.ply", base / "merged.ply"),
+            ("sceneupgrade", scene), ("sceneinspect", "info", scene),
+            ("sceneinspect", "report", scene, base / "report.html", "--device", "cuda")]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-m", f"mve_tpu_torch.apps.{app}", *map(str, a)],
+                              cwd=ROOT, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                              text=True) for app, *a in host]
+    try:
+        errs = [p.communicate(timeout=300)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for (app, *_), p, err in zip(host, procs, errs):
+        if p.returncode != 0:
+            raise AssertionError(f"{app} exited {p.returncode}:\n{err[-3000:]}")
+    walls["host apps"] = time.perf_counter() - t0
+    outs = ("points.ply", "clean-pset.ply", "clean.off", "merged.ply", "report.html")
+    missing = [o for o in outs if not (base / o).is_file()]
+    names = [f"{app} {a[0]}" if app == "sceneinspect" else app for app, *a in host]
+    print(f"  {', '.join(names)} (the report on the card): "
+          f"side by side in {walls['host apps']:.1f} s; missing outputs {missing}", flush=True)
+    if missing:
+        raise AssertionError(f"host apps wrote no {missing}")
+    shutil.rmtree(base, ignore_errors=True)
+    return walls
 
 def main() -> int:
     phase("1. environment")
@@ -1557,14 +1989,40 @@ def main() -> int:
     phase("15. meshclean on phase 14's surface")
     phase_meshclean()
 
+    phase(f"16. makescene on the card and on the CPU: -i and -m on {MAIN_VIEWS} photos of "
+          f"{MAIN_WIDTH}x{MAIN_HEIGHT}, a Bundler workspace of {BUNDLER_VIEWS} views")
+    phase_makescene()
+
+    phase(f"17. sfmrecon --cascade-hashing --skip-sfm on phase 16's {MAIN_VIEWS} views; the "
+          f"cascade card against CPU on phase 4's views")
+    cascade = phase_cascade(main_run)
+
+    phase("18. sfmrecon --skip-sfm --num-processes 2, two processes on the card, on phase 4's "
+          "scene")
+    phase_two_processes()
+
+    phase(f"19. featurerecon on {FEATURERECON_VIEWS} of phase 9's views of "
+          f"{MAIN_WIDTH}x{MAIN_HEIGHT} and their cameras")
+    feat = phase_featurerecon()
+    shutil.rmtree(WORK / "main", ignore_errors=True)
+    shutil.rmtree(WORK / "makescene", ignore_errors=True)
+
+    phase("20. the command line from a folder of 4 photos of 480x360: makescene, sfmrecon, "
+          "dmrecon, scene2pset, fssrecon, meshclean, then the host apps")
+    phase_cli()
+
     replaces = "mve_tpu/ops/pallas_matching.py:27"
     kernels = [
         {"name": "top2", "route": "cuda", "source": "mve_tpu_torch/csrc/top2.cu",
          "replaces": replaces, "launches": main_run["launches"],
-         **at_main, "max_abs_err": max(at_main["max_abs_err"], check_err),
+         **at_main, "max_abs_err": max(at_main["max_abs_err"], check_err, feat["max_abs_err"]),
+         "launches_per_pair_paths": {"cascade_hashing": cascade["launches"],
+                                     "featurerecon": feat["launches"]},
          "mutual_targets_identical": mutual_same, "yardstick_8192x8192x128": yard},
         {"name": "top2_split", "route": "cuda", "source": "mve_tpu_torch/csrc/top2.cu",
-         "replaces": replaces, "launches": main_run["split_launches"], **split_at_main},
+         "replaces": replaces, "launches": main_run["split_launches"], **split_at_main,
+         "launches_per_pair_paths": {"cascade_hashing": cascade["split_launches"],
+                                     "featurerecon": feat["split_launches"]}},
     ]
     print()
     print(smi)

@@ -7,8 +7,8 @@ skips views whose depth embedding already exists unless --force.
     python -m mve_tpu_torch.apps.dmrecon -s2 [--device cpu] <scene>
 
 --process-id and --num-processes split the views modulo the process
-count. Unlike mve_tpu's, their defaults are 0 and 1 and are not read
-from the environment (ROADMAP.md queue A item 13).
+count; as in mve_tpu, their defaults come from JAX_PROCESS_ID and
+JAX_NUM_PROCESSES (0 and 1 when unset).
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ import numpy as np
 from .. import resolve_device
 from ..core import Scene
 from ..mvs import DMRecon, Settings
+from ..parallel.multihost import num_processes_from_env, process_id_from_env
 from ..utils.timer import WallTimer
 
 # Per-run stats (mean depth-map fill ratio etc.) recorded by
@@ -178,10 +179,12 @@ def main(argv=None) -> int:
                    help="Six comma-separated values: minx,miny,minz,maxx,maxy,maxz")
     p.add_argument("--force", action="store_true",
                    help="Reconstruct even if depth embedding exists")
-    p.add_argument("--process-id", type=int, default=0,
-                   help="This process's index for sharding the views")
-    p.add_argument("--num-processes", type=int, default=1,
-                   help="Total processes sharing the view list")
+    p.add_argument("--process-id", type=int, default=process_id_from_env(),
+                   help="This process's index for sharding the views "
+                        "[JAX_PROCESS_ID or 0]")
+    p.add_argument("--num-processes", type=int, default=num_processes_from_env(),
+                   help="Total processes sharing the view list "
+                        "[JAX_NUM_PROCESSES or 1]")
     p.add_argument("--progress", nargs="?", const="fancy", default="simple",
                    choices=("silent", "simple", "fancy"),
                    help="Progress output style: silent, simple or fancy")

@@ -12,8 +12,8 @@ sets FSSR mode: depth-L<s>, undist-L<s>, normals+scale+confidence on.
 All of it is host numpy, as in mve_tpu; device= (--device) is resolved
 like every entry point's, so it raises without CUDA unless the caller
 asks for the CPU, and no device work is done. --process-id and --num-processes
-split the views modulo the process count; their defaults are 0 and 1
-and are not read from the environment (ROADMAP.md queue A item 13).
+split the views modulo the process count; as in mve_tpu, their defaults
+come from JAX_PROCESS_ID and JAX_NUM_PROCESSES (0 and 1 when unset).
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ from ..core import depthmap as dmod
 from ..core import mesh_io
 from ..core.mesh import TriangleMesh
 from ..core.mesh_tools import mesh_merge, mesh_transform
+from ..parallel.multihost import my_shard, num_processes_from_env, process_id_from_env
 
 
 def scene_to_pointset(scene_path: str, output_path: str | None = None, *,
@@ -52,7 +53,7 @@ def scene_to_pointset(scene_path: str, output_path: str | None = None, *,
     corr_meta = []       # (view_id, width, height, first_vertex_index)
     candidates = [i for i, v in enumerate(scene.get_views()) if v is not None]
     if num_processes > 1:
-        mine = set(c for k, c in enumerate(candidates) if k % num_processes == process_id)
+        mine = set(my_shard(candidates, process_id, num_processes))
     else:
         mine = None
     for i, view in enumerate(scene.get_views()):
@@ -183,9 +184,10 @@ def main(argv=None) -> int:
     p.add_argument("-v", "--views", default="", help="View IDs [all]")
     p.add_argument("-F", "--fssr", type=int, default=None, metavar="SCALE",
                    help="FSSR mode: sets -nsc, depth/undist at level SCALE")
-    p.add_argument("--process-id", type=int, default=0,
-                   help="This process's index for sharding the views")
-    p.add_argument("--num-processes", type=int, default=1,
+    p.add_argument("--process-id", type=int, default=process_id_from_env(),
+                   help="This process's index for sharding the views "
+                        "[JAX_PROCESS_ID or 0]")
+    p.add_argument("--num-processes", type=int, default=num_processes_from_env(),
                    help="Total processes sharing the view list (give each "
                         "process its own output file; fssrecon accepts "
                         "multiple inputs)")

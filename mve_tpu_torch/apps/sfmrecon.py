@@ -7,16 +7,25 @@ scene that already has one loads it) -> intrinsics from EXIF or the views
 synth_0.out, each view's camera and the undistorted images. With
 --skip-sfm it stops at the prebundle.
 
+The matcher is the batched all-pairs one; --cascade-hashing selects the
+per-pair matcher with the cascade-hashing SIFT block. With
+--num-processes N (default: JAX_NUM_PROCESSES, as in mve_tpu) N processes
+share the prebundle over the scene directory: each computes the features
+of its share of the views and writes features.part{k}.npz, reads the
+others', matches its share of the pairs with the batched matcher and
+writes matches.part{k}.npz; process 0 merges them into prebundle.sfm,
+removes the part files and goes on to SfM, the others stop there.
+Several processes may share one card.
+
     python -m mve_tpu_torch.apps.sfmrecon [--device cpu] <scene>
 
-Not ported yet: cascade hashing and the multi-process sharding of
-features and pairs (ROADMAP.md queue A item 13), and BA over several
-devices (item 14).
+Not ported yet: BA over several devices (ROADMAP.md item 14).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import time
@@ -27,11 +36,13 @@ from .. import resolve_device
 from ..core import Scene
 from ..core import image_tools
 from ..utils.timer import WallTimer
+from ..parallel.multihost import my_shard, num_processes_from_env, process_id_from_env
 from ..sfm.bundler import (
     BatchedMatching, BundlerMatchingOptions, Features, FeaturesOptions,
-    Intrinsics, IntrinsicsOptions, Viewport, load_prebundle, save_prebundle)
-from ..sfm.bundler.common import load_survey
+    Intrinsics, IntrinsicsOptions, Matching, Viewport, load_prebundle, save_prebundle)
+from ..sfm.bundler.common import TwoViewMatching, load_survey
 from ..sfm.bundler.intrinsics import IntrinsicsSource
+from ..sfm.bundler.matching import all_pairs
 from ..sfm.bundler.pipeline import LAST_PHASE_MS, SfmOptions, run_incremental_sfm
 
 RAND_SEED_MATCHING = 0
@@ -43,19 +54,84 @@ RAND_SEED_MATCHING = 0
 LAST_TIMINGS: dict = {}
 
 
-def _compute_prebundle(views, max_pixels, video_matching, use_lowres_matching,
+def _save_features_part(path: str, idxs, viewports) -> None:
+    """Publish one process's freshly computed viewport features."""
+    arrays = {"idxs": np.asarray(idxs, np.int64)}
+    for i in idxs:
+        vp = viewports[i]
+        arrays[f"v{i}_positions"] = vp.positions
+        arrays[f"v{i}_colors"] = vp.colors
+        arrays[f"v{i}_descriptors"] = vp.descriptors
+        arrays[f"v{i}_surf"] = vp.surf_descriptors
+        arrays[f"v{i}_meta"] = np.asarray([vp.num_sift, vp.width, vp.height], np.int64)
+    _publish_npz(path, arrays)
+
+
+def _load_features_part(path: str, viewports) -> None:
+    with np.load(path) as data:
+        for i in data["idxs"]:
+            i = int(i)
+            vp = viewports[i]
+            vp.positions = data[f"v{i}_positions"]
+            vp.colors = data[f"v{i}_colors"]
+            vp.descriptors = data[f"v{i}_descriptors"]
+            vp.surf_descriptors = data[f"v{i}_surf"]
+            vp.num_sift, vp.width, vp.height = (int(v) for v in data[f"v{i}_meta"])
+            vp.track_ids = np.full(len(vp.positions), -1, np.int32)
+
+
+def _publish_npz(path: str, arrays: dict) -> None:
+    """Write then rename, so that a waiting process never reads a partial file."""
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **arrays)
+    os.replace(tmp, path)
+
+
+def _wait_for_files(paths, timeout_s: float = 3600.0) -> None:
+    t0 = time.time()
+    while not all(os.path.isfile(p) for p in paths):
+        if time.time() - t0 > timeout_s:
+            missing = [p for p in paths if not os.path.isfile(p)]
+            raise RuntimeError(f"Timed out waiting for {missing}")
+        time.sleep(1.0)
+
+
+def _merge_matches(parts):
+    """The pairs of every matches.part file, sorted by view ids."""
+    merged = []
+    for path in parts:
+        with np.load(path) as data:
+            ids = data["ids"].reshape(-1, 2)
+            for j in range(int(data["n"])):
+                merged.append(TwoViewMatching(int(ids[j, 0]), int(ids[j, 1]), data[f"m{j}"]))
+    merged.sort(key=lambda m: (m.view_1_id, m.view_2_id))
+    return merged
+
+
+def _compute_prebundle(scene_path, views, max_pixels, video_matching, use_lowres_matching,
+                       use_cascade_hashing, process_id, num_processes,
                        original_name, undistorted_name, dev, verbose, log_timing):
+    """(viewports, pairwise matching); None on a process other than 0 of
+    several, once its share of the matching is published."""
     viewports = [Viewport() for _ in views]
     timer = WallTimer()
     if verbose:
         print("Computing image features...")
     features = Features(FeaturesOptions(max_image_size=max_pixels, verbose=verbose), dev)
+
+    def image_name(view):
+        return original_name if view.has_image(original_name) else undistorted_name
+
+    all_idxs = [i for i, view in enumerate(views)
+                if view is not None and view.has_image(image_name(view))]
+    # The views this process detects features in: the view list partitions
+    # across processes as the reference's OpenMP-dynamic view loop
+    # partitions across threads (bundler_features.cc:40).
+    mine = my_shard(all_idxs, process_id, num_processes) if num_processes > 1 else all_idxs
     imgs, idxs = [], []
-    for i, view in enumerate(views):
-        if view is None:
-            continue
-        name = original_name if view.has_image(original_name) else undistorted_name
-        img = view.get_image(name)
+    for i in mine:
+        img = views[i].get_image(image_name(views[i]))
         if img is None:
             continue
         imgs.append(img)
@@ -69,14 +145,56 @@ def _compute_prebundle(views, max_pixels, video_matching, use_lowres_matching,
     LAST_TIMINGS["features_ms"] = timer.get_elapsed()
     LAST_TIMINGS["n_features"] = int(sum(len(vp.positions) for vp in viewports))
 
+    if num_processes > 1:
+        # Exchange features over shared storage.
+        part = os.path.join(scene_path, f"features.part{process_id}.npz")
+        _save_features_part(part, idxs, viewports)
+        parts = [os.path.join(scene_path, f"features.part{k}.npz")
+                 for k in range(num_processes)]
+        _wait_for_files(parts)
+        for k, path in enumerate(parts):
+            if k != process_id:
+                _load_features_part(path, viewports)
+
     timer.reset()
     if verbose:
         print("Performing feature matching...")
-    matcher = BatchedMatching(BundlerMatchingOptions(
+    mopts = BundlerMatchingOptions(
         use_lowres_matching=use_lowres_matching,
+        use_cascade_hashing=use_cascade_hashing,
         max_num_pairs_per_view=video_matching,
-        verbose=verbose), dev)
-    pairwise_matching = matcher.compute(viewports, seed=RAND_SEED_MATCHING)
+        verbose=verbose)
+    if num_processes > 1:
+        # The pair list shards across processes (the distributed analog of
+        # OpenMP-dynamic over pairs, bundler_matching.cc:74), each matched
+        # with the batched matcher from its own RandomState.
+        my_pairs = my_shard(all_pairs(len(viewports), video_matching), process_id,
+                            num_processes)
+        matcher = BatchedMatching(mopts, dev)
+        matches = matcher.compute(viewports, seed=RAND_SEED_MATCHING, pairs=my_pairs)
+        _publish_npz(os.path.join(scene_path, f"matches.part{process_id}.npz"), dict(
+            n=len(matches),
+            ids=np.asarray([[m.view_1_id, m.view_2_id] for m in matches], np.int64),
+            **{f"m{j}": m.matches for j, m in enumerate(matches)}))
+        if process_id != 0:
+            if verbose:
+                print(f"Process {process_id}: matching shard done.")
+            return None
+        mparts = [os.path.join(scene_path, f"matches.part{k}.npz")
+                  for k in range(num_processes)]
+        _wait_for_files(mparts)
+        pairwise_matching = _merge_matches(mparts)
+        for path in mparts + parts:
+            with contextlib.suppress(OSError):
+                os.remove(path)
+    elif use_cascade_hashing:
+        # Matcher selection (sfmrecon.cc:141-153): the cascade runs pair
+        # by pair; the default matcher batches all pairs.
+        matcher = Matching(mopts, dev)
+        pairwise_matching = matcher.compute(viewports, seed=RAND_SEED_MATCHING)
+    else:
+        matcher = BatchedMatching(mopts, dev)
+        pairwise_matching = matcher.compute(viewports, seed=RAND_SEED_MATCHING)
     if verbose:
         print(f"Matching took {timer.get_elapsed()}ms; "
               f"{len(pairwise_matching)} connected pairs.")
@@ -128,6 +246,8 @@ def _undistort_and_save(views, bundle, original_name, undistorted_name, dev):
 def sfm_reconstruct(scene_path: str, *, max_pixels: int = 6_000_000,
                     initial_pair=(-1, -1), video_matching: int = 0,
                     use_lowres_matching: bool = True,
+                    use_cascade_hashing: bool = False,
+                    process_id: int = 0, num_processes: int = 1,
                     fixed_intrinsics: bool = False,
                     intrinsics_from_views: bool = False,
                     always_full_ba: bool = False,
@@ -146,7 +266,7 @@ def sfm_reconstruct(scene_path: str, *, max_pixels: int = 6_000_000,
                     verbose: bool = True,
                     device="cuda"):
     """Reconstruct the cameras of a scene. Returns the Incremental (None
-    with skip_sfm)."""
+    with skip_sfm, and on a process other than 0 of several)."""
     dev = resolve_device(device)
     LAST_TIMINGS.clear()
     scene = Scene(scene_path)
@@ -170,9 +290,13 @@ def sfm_reconstruct(scene_path: str, *, max_pixels: int = 6_000_000,
             print("Loading prebundle...")
         viewports, pairwise_matching = load_prebundle(prebundle_path)
     else:
-        viewports, pairwise_matching = _compute_prebundle(
-            views, max_pixels, video_matching, use_lowres_matching, original_name,
+        prebundle = _compute_prebundle(
+            scene_path, views, max_pixels, video_matching, use_lowres_matching,
+            use_cascade_hashing, process_id, num_processes, original_name,
             undistorted_name, dev, verbose, log_timing)
+        if prebundle is None:
+            return None
+        viewports, pairwise_matching = prebundle
         save_prebundle(viewports, pairwise_matching, prebundle_path)
 
     if skip_sfm:
@@ -250,12 +374,17 @@ def main(argv=None) -> int:
     p.add_argument("--log-file", default="", help="Log some timings to file []")
     p.add_argument("--no-prediction", action="store_true",
                    help="Disable low-res matchability prediction")
+    p.add_argument("--lowres-matching", action="store_true",
+                   help="(deprecated) low-res matching is on by default; "
+                        "use --no-prediction to disable")
     p.add_argument("--skip-sfm", action="store_true",
                    help="Compute prebundle, skip SfM reconstruction")
     p.add_argument("--initial-pair", type=str, default="-1,-1",
                    help="Initial pair view IDs, e.g. 0,5")
     p.add_argument("--video-matching", type=int, default=0,
                    help="Only match to ARG previous frames")
+    p.add_argument("--cascade-hashing", action="store_true",
+                   help="Use cascade hashing for matching")
     p.add_argument("--fixed-intrinsics", action="store_true",
                    help="Do not optimize camera intrinsics")
     p.add_argument("--intrinsics-from-views", action="store_true",
@@ -275,6 +404,12 @@ def main(argv=None) -> int:
     p.add_argument("--use-2cam-tracks", action="store_true",
                    help="Triangulate tracks from only two cameras")
     p.add_argument("--min-views-per-track", type=int, default=3)
+    p.add_argument("--process-id", type=int, default=process_id_from_env(),
+                   help="This process's index for sharding features and "
+                        "matching [JAX_PROCESS_ID or 0]")
+    p.add_argument("--num-processes", type=int, default=num_processes_from_env(),
+                   help="Total processes sharing features and matching "
+                        "[JAX_NUM_PROCESSES or 1]")
     p.add_argument("--device", default="cuda",
                    help="Device to run on: cuda or cpu [cuda]")
     args = p.parse_args(argv)
@@ -283,6 +418,8 @@ def main(argv=None) -> int:
         initial_pair=tuple(int(x) for x in args.initial_pair.split(",")),
         video_matching=args.video_matching,
         use_lowres_matching=not args.no_prediction,
+        use_cascade_hashing=args.cascade_hashing,
+        process_id=args.process_id, num_processes=args.num_processes,
         fixed_intrinsics=args.fixed_intrinsics,
         intrinsics_from_views=args.intrinsics_from_views,
         always_full_ba=args.always_full_ba, normalize=args.normalize,

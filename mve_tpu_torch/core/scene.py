@@ -130,3 +130,18 @@ class Scene:
 
     def cache_cleanup(self) -> int:
         return sum(v.cache_cleanup() for v in self.views if v is not None)
+
+    def get_total_mem_usage(self) -> int:
+        """Approximate bytes held by loaded embeddings and the bundle
+        (scene.h memory accounting)."""
+        total = 0
+        for view in self.views:
+            if view is None:
+                continue
+            for proxy in list(view._images.values()) + list(view._blobs.values()):
+                if proxy.data is not None:
+                    total += (proxy.data.nbytes if hasattr(proxy.data, "nbytes")
+                              else len(proxy.data))
+        if self._bundle is not None:
+            total += self._bundle.get_byte_size()
+        return total

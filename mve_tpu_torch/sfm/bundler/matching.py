@@ -1,12 +1,15 @@
 """All-pairs geometrically verified matching, one pair at a time
 (reference: libs/sfm/bundler_matching.cc; port of
-mve_tpu/sfm/bundler/matching.py without cascade hashing).
+mve_tpu/sfm/bundler/matching.py).
 
 Per pair: optional low-res prefilter (match the first N descriptors,
-reject if < min_lowres_matches), full two-way Lowe matching of SIFT and
-of SURF (combined with index offsets past the SIFT block), reject below
+reject if < min_lowres_matches), full two-way Lowe matching of SIFT (by
+the cascade-hashing matcher with use_cascade_hashing) and of SURF
+(combined with index offsets past the SIFT block), reject below
 min_feature_matches, RANSAC fundamental, reject below
-min_matching_inliers. sfmrecon's default matcher is the batched one in
+min_matching_inliers. The low-res prefilter, the SURF block and the
+exhaustive SIFT block go through sfm/matching.match_pair, and so through
+kernel B1 on the card. sfmrecon's default matcher is the batched one in
 matching_batched.py.
 """
 
@@ -19,6 +22,7 @@ import numpy as np
 
 from ... import resolve_device
 from .. import matching as M
+from ..cascade_hashing import CascadeHashing
 from ..ransac import ransac_fundamental, RansacOptions
 from .common import Viewport, TwoViewMatching
 
@@ -32,6 +36,7 @@ class MatchingOptions:
     min_feature_matches: int = 24
     min_matching_inliers: int = 12
     use_lowres_matching: bool = False
+    use_cascade_hashing: bool = False  # sfmrecon.cc:141-153 matcher select
     max_num_pairs_per_view: int = 0  # 0 = all pairs; >0 = video mode window
     ransac_opts: RansacOptions = dataclasses.field(
         default_factory=lambda: RansacOptions(max_iterations=1000, threshold=0.0015))
@@ -50,11 +55,14 @@ class Matching:
     def __init__(self, options: Optional[MatchingOptions] = None, device="cuda"):
         self.opts = options or MatchingOptions()
         self.device = resolve_device(device)
+        self.last_stats: dict = {}
 
     def two_view_matching(self, vp1: Viewport, vp2: Viewport,
-                          rng: np.random.RandomState) -> Optional[np.ndarray]:
+                          rng: np.random.RandomState,
+                          cascade_pair=None) -> Optional[np.ndarray]:
         """(M, 2) verified matches or None (bundler_matching.cc
-        two_view_matching)."""
+        two_view_matching). cascade_pair: optional callable returning the
+        SIFT block's matches from the cascade-hashing matcher."""
         opts = self.opts
         dev = self.device
         sift_opts = M.MatchingOptions(lowe_ratio_threshold=opts.lowe_ratio)
@@ -64,7 +72,10 @@ class Matching:
                                   sift_opts, dev)
             if len(lowres) < opts.min_lowres_matches:
                 return None
-        pairs = M.match_pair(vp1.descriptors, vp2.descriptors, sift_opts, dev)
+        if cascade_pair is not None:
+            pairs = cascade_pair()
+        else:
+            pairs = M.match_pair(vp1.descriptors, vp2.descriptors, sift_opts, dev)
         if len(vp1.surf_descriptors) and len(vp2.surf_descriptors):
             surf_pairs = M.match_pair(
                 vp1.surf_descriptors, vp2.surf_descriptors,
@@ -87,9 +98,23 @@ class Matching:
     def compute(self, viewports: List[Viewport], seed: int = 0) -> List[TwoViewMatching]:
         """Match all O(N^2/2) pairs (bundler_matching.cc:59-89)."""
         rng = np.random.RandomState(seed)
+        cascade = None
+        if self.opts.use_cascade_hashing:
+            cascade = CascadeHashing(device=self.device)
+            cascade.init([vp.descriptors for vp in viewports])
+        mopts = M.MatchingOptions(lowe_ratio_threshold=self.opts.lowe_ratio)
+        pairs = all_pairs(len(viewports), self.opts.max_num_pairs_per_view)
+        self.last_stats = {"n_pairs": len(pairs)}
         result = []
-        for a, b in all_pairs(len(viewports), self.opts.max_num_pairs_per_view):
-            matches = self.two_view_matching(viewports[a], viewports[b], rng)
+        for a, b in pairs:
+            cascade_pair = None
+            if cascade is not None:
+                def cascade_pair(a=a, b=b):
+                    res = cascade.pairwise_match(a, b, mopts)
+                    i1 = np.nonzero(res.matches_1_2 >= 0)[0]
+                    return np.stack([i1, res.matches_1_2[i1]], axis=1).astype(np.int32)
+            matches = self.two_view_matching(viewports[a], viewports[b], rng,
+                                             cascade_pair=cascade_pair)
             if matches is None:
                 continue
             result.append(TwoViewMatching(a, b, matches))

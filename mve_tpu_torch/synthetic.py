@@ -9,7 +9,9 @@ arguments it renders byte-identical images.
 Each view renders a textured background plane z=PLANE_Z plus a nearer
 textured patch at z=NEAR_Z (exact ray/plane intersection, bilinear
 texture lookup); the scene directory holds ORIGINAL images only, as
-makescene would create it.
+makescene would create it. make_photo_folder writes the same views as a
+folder of photos (PNG, and JPEG with an EXIF focal length), makescene's
+input.
 """
 
 from __future__ import annotations
@@ -135,3 +137,43 @@ def make_two_plane_scene(path: str, n_views=6, width=240, height=180, seed=0,
         scene.add_view(view)
     scene.save_views()
     return scene, cams
+
+
+def save_photo(img: np.ndarray, path: str, focal_mm=None) -> None:
+    """Write an (H, W, 3) uint8 image as a photo: a PNG, or with focal_mm a
+    JPEG (quality 95) whose EXIF names a camera maker and model and
+    carries focal_mm as the focal length and its 35 mm equivalent."""
+    from PIL import Image
+    from PIL.TiffImagePlugin import IFDRational
+
+    pil = Image.fromarray(img)
+    if focal_mm is None:
+        pil.save(path)
+        return
+    exif = Image.Exif()
+    exif[0x010F] = "Canon"           # Make
+    exif[0x0110] = "Canon EOS 5D"    # Model
+    sub = exif.get_ifd(0x8769)       # the Exif IFD
+    sub[0x920A] = IFDRational(int(focal_mm), 1)   # FocalLength
+    sub[0xA405] = int(focal_mm)      # FocalLengthIn35mmFilm
+    pil.save(path, quality=95, exif=exif.tobytes())
+
+
+def make_photo_folder(path: str, n_views=4, width=240, height=180, seed=0,
+                      jpeg_every=2, focal_mm=35.0):
+    """Write the views of make_two_plane_scene as image files (save_photo):
+    every jpeg_every-th view a JPEG with an EXIF focal length, the others
+    PNGs. Returns the file paths."""
+    import os
+
+    os.makedirs(path, exist_ok=True)
+    tex_far = make_texture(seed=seed, smooth_sigma=3.0)
+    tex_near = make_texture(seed=seed + 100, smooth_sigma=3.0)
+    paths = []
+    for i, cam in enumerate(make_cameras(n_views, spread=0.55, seed=seed)):
+        img = render_two_plane_view(tex_far, tex_near, cam, width, height)
+        jpeg = bool(jpeg_every) and i % jpeg_every == 0
+        fname = os.path.join(path, f"photo_{i:03d}.{'jpg' if jpeg else 'png'}")
+        save_photo(img, fname, focal_mm if jpeg else None)
+        paths.append(fname)
+    return paths

@@ -98,8 +98,11 @@ def test_interop_round_trip(jax_viewports, port_viewports):
     assert sift_opts.max_keypoints_per_octave == 2048
     assert surf_opts.contrast_threshold == 400.0
     assert mopts.lowe_ratio == 0.7 and mopts.ransac_opts.threshold == 0.002
+    # Cascade hashing is ported now: its option is a field like any other.
+    assert interop.options_from_dict(
+        {"matching": {"use_cascade_hashing": True}})[2].use_cascade_hashing
     with pytest.raises(ValueError):
-        interop.options_from_dict({"matching": {"use_cascade_hashing": True}})
+        interop.options_from_dict({"matching": {"no_such_option": True}})
 
 
 @pytest.mark.parametrize("device,d,want", [("cuda", 128, True), ("cuda", 64, False),
