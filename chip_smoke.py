@@ -9,6 +9,8 @@ Phases, each printed as it runs; any failure raises and ends the run:
   2. build every hand-written kernel from mve_tpu_torch/csrc with nvcc;
      ptxas must report 0 spill bytes, and the top-2 library's machine
      code must hold tensor-core (HGMMA) and TMA (UTMALDG) instructions;
+     then the native host library (mve_tpu_torch/native) with g++, which
+     must load (a silent fallback would measure the wrong code);
   3. the top-2 kernels against their plain PyTorch versions on the card:
      the split pre-pass bit for bit; the product on exact, ragged,
      single-reference, tied, D=64 and batched-pair inputs, in float32 and
@@ -65,7 +67,10 @@ Phases, each printed as it runs; any failure raises and ends the run:
      device busy share, its ten most expensive device ops and the time of
      each solver phase, and the same view with torch.cumsum and plain
      multiply-adds in place of the CPU's order (its time, and how far its
-     depths move); then view 0 card against CPU with phase 10's limits;
+     depths move); then view 0 of this run card against CPU with phase
+     10's limits: the CPU's view 0 runs in a second process while phases
+     14 and 15 keep the card busy and leave the host's cores idle, and
+     is held against the card's when phase 15 ends;
  12. scene2pset -F2 on phase 11's depth maps: point count, wall time, and
      the PLY read back with normals, values and confidences;
  13. fssrecon card against CPU on every FSSR_EVERY-th point of phase 12's
@@ -82,11 +87,13 @@ Phases, each printed as it runs; any failure raises and ends the run:
      torch.profiler (busy share, top device ops; it must be bit-identical
      to the first), and the surface against the scene's two planes
      (SURF_TOL, SURF_GROSS_TOL);
- 15. meshclean with default flags on phase 14's surface: time, vertex,
-     face and component counts before and after (no component under
-     1,000 vertices and no degenerate face may remain), the cleaned
-     surface against the scene's planes (a reading), and the time of the
-     Python union-find fallbacks (mesh_components, clean_mc_mesh);
+ 15. meshclean with default flags on phase 14's surface, through the
+     native library: time, vertex, face and component counts before and
+     after (no component under 1,000 vertices and no degenerate face may
+     remain), the cleaned surface against the scene's planes (a reading),
+     and mesh_components, clean_mc_mesh and the whole app again through
+     the Python fallbacks: their times beside the native ones, with
+     identical outputs;
  16. makescene: phase 5's 40 views written as photos (JPEG with an EXIF
      focal length, and PNG), imported with -i, then with -m at a quarter
      of the pixels, then a Bundler workspace of BUNDLER_VIEWS views of
@@ -111,7 +118,32 @@ Phases, each printed as it runs; any failure raises and ends the run:
      each app as `python -m mve_tpu_torch.apps.<app>` on the card
      (makescene, sfmrecon, dmrecon, scene2pset, fssrecon, meshclean), then
      prebundle, bundle2pset, mesh2pset, meshconvert, meshalign,
-     sceneupgrade and sceneinspect on their outputs: each must exit 0.
+     sceneupgrade, sceneinspect and meshview (two turntable frames on the
+     card) on their outputs: each must exit 0;
+ 21. meshview at its default 1024x768 on phase 15's cleaned surface with
+     --scene on phase 9's scene (frusta of 40 views, its SfM points):
+     --view-id 0 and --turntable 4, each twice (without and under the
+     profiler, bit-identical): each frame's wall time, render time,
+     device kernel time and busy share, and peak memory; view 0's covered
+     pixels, unprojected, against the scene's planes (phase 14's limits);
+     then phase 13's surface at 256x192 card against CPU (the limits of
+     tests/test_torch_render.py);
+ 22. SIFT with min_octave=-1 on SIFT_VIEWS views of 1600x1200 (octave -1
+     images of 3200x2400, in which octave -1 finds next to nothing) and
+     on a finely textured view of that size (in which it must find at
+     least 1,000) beside min_octave=0: keypoints, time, peak memory; then
+     card against CPU on a 480x360 view with tests/test_torch_features.py's
+     keypoint agreement, over all keypoints and over octave -1's alone;
+ 23. tracing: IsoOctree.compute_voxels with the pair list and the dense
+     path under MVE_TPU_TRACE_DIR: one Chrome trace per FSSR span, each
+     naming its span; without the variable no file is written;
+ 24. fssrecon with MVE_TPU_FSSR_PAIRWISE=1 (the native influence pairs,
+     the pair list on the device) on phase 13's point set: the pair
+     count, the pairing and device times; the evaluation again on the
+     card (bit-identical); card against CPU on every PAIR_CPU_EVERY-th
+     corner with phase 13's limits, and against phase 13's dense card run
+     with phase 13's limits at all but PAIR_RIM_SHARE of the corners and
+     within PAIR_RIM_TOL there.
 Each phase's header says how far into the script it starts.
 It prints one JSON line describing every kernel, and as its last line
 {"ok": true, "device": {...}}. It exits non-zero without a result when
@@ -129,6 +161,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 import warnings
 from pathlib import Path
 
@@ -136,9 +169,9 @@ import numpy as np
 import torch
 
 import mve_tpu_torch
-from mve_tpu_torch import synthetic
-from mve_tpu_torch.apps import (dmrecon, featurerecon, fssrecon, makescene, meshclean, scene2pset,
-                                sfmrecon)
+from mve_tpu_torch import native, synthetic
+from mve_tpu_torch.apps import (dmrecon, featurerecon, fssrecon, makescene, meshclean, meshview,
+                                scene2pset, sfmrecon)
 from mve_tpu_torch.core import Scene, image_io, image_tools
 from mve_tpu_torch.core.bundle_io import load_mve_bundle
 from mve_tpu_torch.core.mesh import TriangleMesh
@@ -149,6 +182,7 @@ from mve_tpu_torch.fssr import dual_contouring as fssr_dc
 from mve_tpu_torch.fssr import iso_octree as fssr_iso_octree
 from mve_tpu_torch.fssr import streaming as fssr_streaming
 from mve_tpu_torch.fssr.mesh_clean import clean_mc_mesh
+from mve_tpu_torch.fssr.sample import load_samples_from_ply
 from mve_tpu_torch.mvs import Settings as MvsSettings
 from mve_tpu_torch.mvs import dmrecon as mvs_dmrecon
 from mve_tpu_torch.mvs import patch as mvs_patch
@@ -156,7 +190,9 @@ from mve_tpu_torch.mvs import sweep_solver as mvs_sweep
 from mve_tpu_torch.mvs import view_selection as mvs_vs
 from mve_tpu_torch.ops import cuda_build, top2 as top2_mod
 from mve_tpu_torch.ops.matching import descriptor_top2, descriptor_top2_pairs, split_tf32
+from mve_tpu_torch.render import rasterizer
 from mve_tpu_torch.sfm import matching as sfm_matching
+from mve_tpu_torch.sfm import sift
 from mve_tpu_torch.sfm.ba import BAOptions, optimize_arrays
 from mve_tpu_torch.sfm.bundler import Intrinsics, IntrinsicsOptions, matching_batched
 from mve_tpu_torch.sfm.bundler import init_pair as init_pair_mod
@@ -1129,6 +1165,14 @@ def prepare_view(scene_path, view_id, settings):
                                      *mvs_dmrecon._scene_inputs(scene, settings), view_id)
 
 
+# Phase 11's view 0 on the CPU: a second process with this many intra-op
+# threads (of the host's 8), started when phase 14 starts (phases 14 and
+# 15 leave most of the host's cores idle) and read when phase 15 ends.
+CPU_VIEW0_THREADS = 6
+# Processes started in the background; main() stops any still running.
+BACKGROUND = []
+
+
 def phase_full_dmrecon():
     """dmrecon -s2 on phase 9's scene with the app's default Settings."""
     scene = WORK / "main"
@@ -1220,19 +1264,66 @@ def phase_full_dmrecon():
           f"{float(np.median(np.abs(unordered[both] - ordered[both]) / ordered[both])):.3e}",
           flush=True)
 
-    # View 0, card against CPU, on a copy of the scene.
+    # View 0 card against CPU: the CPU's run is made on a copy of the scene
+    # by start_cpu_view0 and held against this run's view 0 by
+    # finish_cpu_view0.
     cpu_scene = WORK / "main_cpu"
     shutil.rmtree(cpu_scene, ignore_errors=True)
     shutil.copytree(scene, cpu_scene)
+    card_view0 = depth_maps(scene, "depth-L2")[0]
+    return dict(wall=wall, timings=t, peak=peak, busy_share=busy / pwall, phases=phases,
+                card_view0=card_view0)
+
+
+def start_cpu_view0():
+    """dmrecon -s2 of view 0 on the CPU (the app's default Settings, as
+    phase 11's card run), on phase 11's copy of the scene, in a second
+    process without the card. Returns (process, log path, start time)."""
+    code = ("import sys, time, torch; torch.set_num_threads(int(sys.argv[2])); "
+            "from mve_tpu_torch.apps import dmrecon; from mve_tpu_torch.mvs import Settings; "
+            "t0 = time.perf_counter(); "
+            "dmrecon.reconstruct_views(sys.argv[1], scale=2, view_ids={0}, force=True, "
+            "settings=Settings(), verbose=False, device='cpu'); "
+            "print(f'{time.perf_counter() - t0:.3f}')")
+    log = WORK / "main_cpu.log"
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", code, str(WORK / "main_cpu"), str(CPU_VIEW0_THREADS)],
+            cwd=ROOT, stdout=f, stderr=subprocess.STDOUT,
+            env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    BACKGROUND.append(proc)
+    return proc, log, time.perf_counter()
+
+
+def finish_cpu_view0(started, card_view0):
+    """Waits for start_cpu_view0's process and holds phase 11's view 0
+    against the CPU's with phase 10's limits."""
+    proc, log, t_start = started
     t0 = time.perf_counter()
-    dmrecon.reconstruct_views(str(cpu_scene), scale=2, view_ids={0}, force=True,
-                              settings=MvsSettings(), verbose=False, device="cpu")
-    print(f"  view 0 on the CPU: {time.perf_counter() - t0:.3f} s "
-          f"({torch.get_num_threads()} threads)", flush=True)
-    card = {0: depth_maps(scene, "depth-L2")[0]}
-    compare_depths(card, {0: depth_maps(cpu_scene, "depth-L2")[0]})
+    try:
+        rc = proc.wait(timeout=900)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError("phase 11's view 0 on the CPU did not end within 900 s")
+    waited = time.perf_counter() - t0
+    out = log.read_text()
+    if rc != 0:
+        raise AssertionError(f"phase 11's view 0 on the CPU exited {rc}:\n{out[-3000:]}")
+    cpu_scene = WORK / "main_cpu"
+    print(f"  view 0 on the CPU ({CPU_VIEW0_THREADS} threads, in a second process started "
+          f"{time.perf_counter() - t_start:.1f} s ago): reconstruct_views {out.split()[-1]} s; "
+          f"waited for it {waited:.1f} s", flush=True)
+    compare_depths({0: card_view0}, {0: depth_maps(cpu_scene, "depth-L2")[0]})
     shutil.rmtree(cpu_scene, ignore_errors=True)
-    return dict(wall=wall, timings=t, peak=peak, busy_share=busy / pwall, phases=phases)
+
+
+def stop_background():
+    """Kills every background process still running."""
+    for proc in BACKGROUND:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
 
 
 def phase_pointset():
@@ -1390,6 +1481,9 @@ def phase_fssr_card_vs_cpu():
                 or conf_flips > CONF_FLIP_TOL * len(sc):
             raise AssertionError(f"fssrecon {label}: card and CPU disagree")
         worst[label] = (rmax, flips, fg, fc)
+        if label == "default":
+            save_mesh(mg, str(scene / "surf-sub.ply"))      # phase 21's small surface
+            worst["default_card"] = (sg, fg)                # phase 24's dense reference
     return worst
 
 
@@ -1482,35 +1576,71 @@ def mesh_summary(mesh, labels):
     return mesh.num_vertices(), mesh.num_faces(), sizes, int((repeat | (area2 == 0)).sum())
 
 
+@contextlib.contextmanager
+def python_fallbacks():
+    """The port's callers with the native library unavailable (each takes
+    its Python fallback)."""
+    real = native.get_lib
+    native.get_lib = lambda: None
+    try:
+        yield
+    finally:
+        native.get_lib = real
+
+
+def timed_ms(fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
 def phase_meshclean():
-    """meshclean with default flags on phase 14's surface."""
+    """meshclean with default flags on phase 14's surface, through the
+    native library; its steps also through the Python fallbacks, which
+    must give identical results."""
     scene = WORK / "main"
     before = load_mesh(str(scene / "surf.ply"))
-    t0 = time.perf_counter()
-    labels = mesh_components(before)
-    comp_ms = 1e3 * (time.perf_counter() - t0)
+    slow = load_mesh(str(scene / "surf.ply"))
+    labels, comp_ms = timed_ms(mesh_components, before)
+    with python_fallbacks():
+        labels_py, comp_py_ms = timed_ms(mesh_components, slow)
     nv, nf, sizes, degenerate = mesh_summary(before, labels)
-    t0 = time.perf_counter()
-    collapsed = clean_mc_mesh(before)
-    clean_ms = 1e3 * (time.perf_counter() - t0)
+    collapsed, clean_ms = timed_ms(clean_mc_mesh, before)
+    with python_fallbacks():
+        collapsed_py, clean_py_ms = timed_ms(clean_mc_mesh, slow)
+    same = (np.array_equal(labels, labels_py) and collapsed == collapsed_py
+            and np.array_equal(before.vertices, slow.vertices)
+            and np.array_equal(before.faces, slow.faces))
     print(f"  surf.ply: {nv} vertices, {nf} faces, {len(sizes)} components (smallest "
           f"{sizes.min() if len(sizes) else 0}, {(sizes < 1000).sum()} below 1,000 vertices), "
-          f"{degenerate} degenerate faces; mesh_components (Python union-find) {comp_ms:.0f} ms, "
-          f"clean_mc_mesh alone (Python union-find collapses) {clean_ms:.0f} ms, {collapsed} "
-          f"collapses", flush=True)
+          f"{degenerate} degenerate faces; mesh_components native {comp_ms:.1f} ms / Python "
+          f"union-find {comp_py_ms:.0f} ms, clean_mc_mesh alone native {clean_ms:.1f} ms / Python "
+          f"{clean_py_ms:.0f} ms, {collapsed} collapses; native and Python outputs identical: "
+          f"{same}", flush=True)
+    if not same:
+        raise AssertionError("meshclean: the native library and the Python fallbacks differ")
     t0 = time.perf_counter()
     meshclean.mesh_clean(str(scene / "surf.ply"), str(scene / "clean.ply"), verbose=False)
     wall = time.perf_counter() - t0
+    with python_fallbacks():
+        t0 = time.perf_counter()
+        meshclean.mesh_clean(str(scene / "surf.ply"), str(scene / "clean-py.ply"), verbose=False)
+        wall_py = time.perf_counter() - t0
+    same = (scene / "clean.ply").read_bytes() == (scene / "clean-py.ply").read_bytes()
     clean = load_mesh(str(scene / "clean.ply"))
     nv, nf, sizes, degenerate = mesh_summary(clean, mesh_components(clean))
     med, gross = surface_truth_errors(scene, clean.vertices)
-    print(f"  mesh_clean (default flags): {wall:.3f} s; clean.ply {nv} vertices, {nf} faces, "
+    print(f"  mesh_clean with the Python fallbacks: {wall_py:.3f} s; clean.ply byte-identical: "
+          f"{same}", flush=True)
+    if not same:
+        raise AssertionError("meshclean: the native library and the Python fallbacks differ")
+    print(f"  mesh_clean (default flags, native library): {wall:.3f} s; clean.ply {nv} vertices, {nf} faces, "
           f"{len(sizes)} components (smallest {sizes.min() if len(sizes) else 0}), {degenerate} "
           f"degenerate faces; against the scene's planes: median {med:.3e}, share more than "
           f"{GROSS_OFF:g} off {gross:.5f}", flush=True)
     if nf == 0 or (sizes < 1000).any() or degenerate:
         raise AssertionError("meshclean: a small component or a degenerate face remains")
-    return dict(wall=wall, vertices=nv, faces=nf, components=len(sizes))
+    return dict(wall=wall, wall_py=wall_py, vertices=nv, faces=nf, components=len(sizes))
 
 
 
@@ -1884,7 +2014,9 @@ def phase_cli():
             ("meshconvert", base / "clean.ply", base / "clean.off"),
             ("meshalign", base / "clean.ply", base / "surf.ply", base / "merged.ply"),
             ("sceneupgrade", scene), ("sceneinspect", "info", scene),
-            ("sceneinspect", "report", scene, base / "report.html", "--device", "cuda")]
+            ("sceneinspect", "report", scene, base / "report.html", "--device", "cuda"),
+            ("meshview", base / "clean.ply", "--scene", scene, "--turntable", "2", "-o",
+             base / "view.png", "--device", "cuda")]
     t0 = time.perf_counter()
     procs = [subprocess.Popen([sys.executable, "-m", f"mve_tpu_torch.apps.{app}", *map(str, a)],
                               cwd=ROOT, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
@@ -1900,15 +2032,434 @@ def phase_cli():
         if p.returncode != 0:
             raise AssertionError(f"{app} exited {p.returncode}:\n{err[-3000:]}")
     walls["host apps"] = time.perf_counter() - t0
-    outs = ("points.ply", "clean-pset.ply", "clean.off", "merged.ply", "report.html")
+    outs = ("points.ply", "clean-pset.ply", "clean.off", "merged.ply", "report.html",
+            "view_0000.png", "view_0001.png")
     missing = [o for o in outs if not (base / o).is_file()]
     names = [f"{app} {a[0]}" if app == "sceneinspect" else app for app, *a in host]
-    print(f"  {', '.join(names)} (the report on the card): "
+    print(f"  {', '.join(names)} (the report and meshview on the card): "
           f"side by side in {walls['host apps']:.1f} s; missing outputs {missing}", flush=True)
     if missing:
         raise AssertionError(f"host apps wrote no {missing}")
     shutil.rmtree(base, ignore_errors=True)
     return walls
+
+# ---------------------------------------------------------------------------
+# Slice 7: meshview, the pair-list FSSR with the native library, SIFT's
+# upsampled first octave, tracing.
+# ---------------------------------------------------------------------------
+
+# meshview's default frame, at which users run it.
+VIEW_W, VIEW_H = 1024, 768
+# Card against CPU on phase 13's surface: the limits of
+# tests/test_torch_render.py (at most RENDER_FAULT_SHARE of the covered
+# pixels differ in coverage or owner; elsewhere depth within
+# RENDER_DEPTH_TOL and colour within RENDER_RGB_TOL).
+RENDER_FAULT_SHARE, RENDER_DEPTH_TOL, RENDER_RGB_TOL = 0.01, 1e-6, 1e-5
+
+
+class _RenderRecorder:
+    """Wraps meshview.render_mesh: keeps each frame's (view, proj, rgb,
+    depth) and its synced wall time and peak device memory; with
+    `profile`, runs each call under device_profile and keeps the kernel
+    time too."""
+
+    def __init__(self, fn, profile):
+        self.fn, self.profile, self.frames = fn, profile, []
+
+    def __call__(self, mesh, view, proj, *args, **kwargs):
+        dev = torch.device(kwargs.get("device", "cuda"))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        if self.profile:
+            (rgb, depth), wall, busy, _ = device_profile(
+                lambda: self.fn(mesh, view, proj, *args, **kwargs))
+        else:
+            t0 = time.perf_counter()
+            rgb, depth = self.fn(mesh, view, proj, *args, **kwargs)
+            wall, busy = 1e3 * (time.perf_counter() - t0), None
+        peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+        self.frames.append(dict(view=view.copy(), proj=proj.copy(), rgb=rgb, depth=depth,
+                                wall=wall, busy=busy, peak=peak))
+        return rgb, depth
+
+
+def run_meshview(argv, profile=False):
+    """meshview.main(argv) in this process with its render_mesh recorded;
+    returns (frames, wall s of each frame from the app's start or the
+    previous frame's PNG to this frame's PNG)."""
+    rec = _RenderRecorder(meshview.render_mesh, profile)
+    real_save = meshview.save_image
+    stamps = []
+
+    def save(img, path):
+        real_save(img, path)
+        stamps.append(time.perf_counter())
+
+    meshview.render_mesh, meshview.save_image = rec, save
+    try:
+        t0 = time.perf_counter()
+        if meshview.main([str(a) for a in argv]) != 0:
+            raise AssertionError(f"meshview {argv} failed")
+    finally:
+        meshview.render_mesh, meshview.save_image = rec.fn, real_save
+    return rec.frames, np.diff([t0] + stamps)
+
+
+def unproject(frame):
+    """World points of the covered pixels of a frame (pixel centres at
+    their NDC depth through the inverse of proj @ view)."""
+    depth = frame["depth"]
+    h, w = depth.shape
+    ys, xs = np.nonzero(np.isfinite(depth))
+    ndc = np.stack([(xs + 0.5) / w * 2 - 1, 1 - (ys + 0.5) / h * 2,
+                    depth[ys, xs].astype(np.float64), np.ones(len(xs))], 1)
+    hom = ndc @ np.linalg.inv(frame["proj"].astype(np.float64)
+                              @ frame["view"].astype(np.float64)).T
+    return hom[:, :3] / hom[:, 3:]
+
+
+def compare_frames(card, cpu):
+    """(pixels at fault, covered pixels, largest depth and colour
+    difference elsewhere) of two frames of the same mesh and camera."""
+    gc, cc = np.isfinite(card["depth"]), np.isfinite(cpu["depth"])
+    both = gc & cc
+    dd = np.zeros(card["depth"].shape)
+    dd[both] = np.abs(card["depth"][both] - cpu["depth"][both])
+    dc = np.abs(card["rgb"] - cpu["rgb"]).max(-1)
+    owner = both & ((dd > 1e-5) | (dc > 1e-4))
+    fault = (gc != cc) | owner
+    return (int(fault.sum()), int((gc | cc).sum()), float(dd[both & ~owner].max(initial=0)),
+            float(dc[~fault].max(initial=0)))
+
+
+def phase_meshview():
+    """meshview at its default 1024x768 on phase 15's cleaned surface with
+    --scene on phase 9's scene (frusta of its 40 views and its SfM
+    points): --view-id 0, then --turntable 4, each frame's wall time,
+    rasterizer time, busy share and peak memory; view 0's covered pixels
+    against the scene's planes; then card against CPU on phase 13's
+    surface at 256x192."""
+    scene, out = WORK / "main", WORK / "meshview"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    clean = load_mesh(str(scene / "clean.ply"))
+    bundle = load_mve_bundle(str(scene / "synth_0.out"))
+    print(f"  clean.ply {clean.num_faces()} faces; scene {len(bundle.cameras)} cameras, "
+          f"{bundle.get_num_features()} SfM points; chunk on the card "
+          f"{rasterizer._chunk_size(VIEW_W * VIEW_H)} triangles",
+          flush=True)
+    common = [scene / "clean.ply", "--scene", scene, "--device", "cuda"]
+    runs = {}
+    # Each run twice, without and under the profiler (the profiler's own
+    # work triples a frame's wall time); the two renders must be
+    # bit-identical.
+    for label, argv in (("view-id 0", ["--view-id", "0", "-o", out / "view0.png"]),
+                        ("turntable 4", ["--turntable", "4", "-o", out / "turn.png"])):
+        frames, walls = run_meshview(common + argv)
+        prof, _ = run_meshview(common + argv, profile=True)
+        for i, (f, pf, wall) in enumerate(zip(frames, prof, walls)):
+            print(f"  {label} frame {i}: wall {1e3 * wall:.1f} ms (render_mesh {f['wall']:.1f} ms); "
+                  f"under the profiler render_mesh {pf['wall']:.1f} ms, device kernels "
+                  f"{pf['busy']:.1f} ms ({100 * pf['busy'] / pf['wall']:.1f}% busy); "
+                  f"max_memory_allocated {f['peak']} bytes; {int(np.isfinite(f['depth']).sum())} "
+                  f"covered pixels", flush=True)
+            if not np.array_equal(f["depth"], pf["depth"]) or not np.array_equal(f["rgb"], pf["rgb"]):
+                raise AssertionError(f"meshview {label}: two renders of frame {i} differ")
+        runs[label] = (frames, walls, prof)
+    pngs = sorted(p.name for p in out.iterdir())
+    frame0 = runs["view-id 0"][0][0]
+    pts = unproject(frame0)
+    med, gross = surface_truth_errors(scene, pts)
+    print(f"  PNGs {pngs}; view 0: {len(pts)} covered pixels unprojected, against the scene's "
+          f"planes: median {med:.3e} (<={SURF_TOL:g}), share more than {GROSS_OFF:g} off "
+          f"{gross:.5f} (<={SURF_GROSS_TOL:g})", flush=True)
+    if len(pngs) != 5 or len(pts) < 0.2 * VIEW_W * VIEW_H or med > SURF_TOL \
+            or gross > SURF_GROSS_TOL:
+        raise AssertionError("meshview: frames missing, or view 0 off the scene's planes")
+
+    small = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        frames, _ = run_meshview([scene / "surf-sub.ply", "--scene", scene, "--view-id", "0",
+                                  "--width", 256, "--height", 192, "-o", out / f"sub-{dev}.png",
+                                  "--device", dev])
+        small[dev] = (frames[0], time.perf_counter() - t0)
+    fault, covered, dmax, cmax = compare_frames(small["cuda"][0], small["cpu"][0])
+    sub_faces = load_mesh(str(scene / "surf-sub.ply")).num_faces()
+    print(f"  phase 13's surface ({sub_faces} faces) at 256x192, view 0: card "
+          f"{small['cuda'][1]:.3f} s, CPU {small['cpu'][1]:.3f} s; {fault} of {covered} covered "
+          f"pixels at fault (<={RENDER_FAULT_SHARE * covered:.0f}); elsewhere depth apart at most "
+          f"{dmax:.3e} (<={RENDER_DEPTH_TOL:g}), colour {cmax:.3e} (<={RENDER_RGB_TOL:g})",
+          flush=True)
+    if covered == 0 or fault > RENDER_FAULT_SHARE * covered or dmax > RENDER_DEPTH_TOL \
+            or cmax > RENDER_RGB_TOL:
+        raise AssertionError("meshview: card and CPU disagree")
+    shutil.rmtree(out, ignore_errors=True)
+    return runs
+
+
+@contextlib.contextmanager
+def environ(**values):
+    """os.environ with `values` set (None: unset) for the block."""
+    old = {k: os.environ.get(k) for k in values}
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def pair_list_sums(samples, positions, dev):
+    """((V, 10) corner sums, iso_octree.STATS, wall s) of the pair-list
+    evaluation of samples at positions on dev."""
+    with environ(MVE_TPU_FSSR_PAIRWISE="1"), \
+            recording(fssr_iso_octree, "_normalize_sums") as sums:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fssr_iso_octree.evaluate_at_positions(samples, positions, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return sums[0][0][0], dict(fssr_iso_octree.STATS), wall
+
+
+# Phase 24 holds the pair list card against CPU on every PAIR_CPU_EVERY-th
+# corner: a corner's sums depend on its own pairs only, and the CPU takes
+# 24-35 s for all 523,983.
+PAIR_CPU_EVERY = 8
+# Phase 24 holds the pair list against the dense path with phase 13's
+# limits at all but at most PAIR_RIM_SHARE of the corners, and there
+# within PAIR_RIM_TOL: where a sample lies within a float32 rounding of
+# a corner's influence radius, the pair list (float64) and the dense
+# path (float32) can decide it apart and move the scale filter, and
+# mve_tpu's own two evaluators differ there alike (tests/test_torch_fssr.py::
+# test_pairwise_and_dense_differ_alike_at_rim_decisions). On phase 13's
+# point set 35 of 523,983 corners have such a decision, and there the
+# sums were at most 4.816e-5 of a column's largest apart on the card
+# (PERF.md, section 6).
+PAIR_RIM_SHARE, PAIR_RIM_TOL = 1e-4, 1e-4
+
+
+def phase_pairwise_fssr(dense_card_sums, dense_card_faces):
+    """fssrecon with MVE_TPU_FSSR_PAIRWISE=1 on phase 13's point set: the
+    native influence pairs, then the pair list on the device. The
+    evaluation again on the card (bit-identical); card against CPU on
+    every PAIR_CPU_EVERY-th corner with phase 13's limits; the card
+    against phase 13's dense card run with phase 13's limits at all but
+    PAIR_RIM_SHARE of the corners, and there within PAIR_RIM_TOL."""
+    path = WORK / "main" / "pset-sub.ply"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with environ(MVE_TPU_FSSR_PAIRWISE="1"), \
+            recording(fssr_iso_octree, "evaluate_at_positions") as evals:
+        mg, sg, wg, _, _ = corner_sums_run(path, "cuda")
+    peak = torch.cuda.max_memory_allocated()
+    stg = dict(fssr_iso_octree.STATS)
+    samples, positions = evals[0][0][:2]
+    positions = np.asarray(positions, np.float64)
+    sg2, stg2, wg2 = pair_list_sums(samples, positions, "cuda")
+    identical = np.array_equal(sg, sg2)
+    sub = positions[::PAIR_CPU_EVERY]
+    sgs, stgs, wgs = pair_list_sums(samples, sub, "cuda")
+    scs, stcs, wcs = pair_list_sums(samples, sub, "cpu")
+    print(f"  {stg['pairs']} influence pairs ({stg['source']} list) for {len(sg)} corners: "
+          f"pairing {stg['pairs_ms']:.0f} ms on the host, device evaluation {stg['device_ms']:.0f} "
+          f"ms; fssr_reconstruct {wg:.3f} s, max_memory_allocated {peak} bytes; the evaluation "
+          f"again {wg2:.3f} s (pairing {stg2['pairs_ms']:.0f} ms, device {stg2['device_ms']:.0f} "
+          f"ms), bit-identical: {identical}; every {PAIR_CPU_EVERY}th corner ({len(sub)}, "
+          f"{stgs['pairs']} pairs): card {wgs:.3f} s (device {stgs['device_ms']:.0f} ms), CPU "
+          f"{wcs:.3f} s (device {stcs['device_ms']:.0f} ms, {torch.get_num_threads()} threads)",
+          flush=True)
+    if stg["source"] != "native" or not identical:
+        raise AssertionError("pair-list FSSR: no native pairs, or two card runs differ")
+    beyond = {}
+    for label, got, other, share in (
+            (f"card against CPU, every {PAIR_CPU_EVERY}th corner", sgs, scs, 0.0),
+            ("pair list against the dense path, both on the card", sg, dense_card_sums,
+             PAIR_RIM_SHARE)):
+        if other.shape != got.shape:
+            raise AssertionError(f"pair-list FSSR {label}: {len(got)} corners against {len(other)}")
+        cols, rmed, flips, bad, conf_flips = compare_corner_sums(got, other)
+        scale = np.abs(other).max(axis=0)
+        corner = (np.abs(got - other) / np.where(scale > 0, scale, 1.0)).max(axis=1)
+        rmax, over = float(cols.max()), int((corner > SUMS_TOL).sum())
+        limit = PAIR_RIM_TOL if share else SUMS_TOL
+        faces = f"; faces {mg.num_faces()} / {dense_card_faces}" if share else ""
+        print(f"  {label}: corner sums apart at most {rmax:.3e} (<={limit:g}), median {rmed:.3e}; "
+              f"{over} corners beyond {SUMS_TOL:g} (<={share * len(got):.2f}); {conf_flips} corners "
+              f"with confidence > 0 on one side only (<={CONF_FLIP_TOL * len(got):.2f}); {flips} "
+              f"sign flips, {bad} outside the limit{faces}", flush=True)
+        if rmax > limit or over > share * len(got) or bad \
+                or conf_flips > CONF_FLIP_TOL * len(got):
+            raise AssertionError(f"pair-list FSSR {label}: disagree")
+        beyond[label] = over
+    if abs(mg.num_faces() - dense_card_faces) > FACE_TOL * dense_card_faces:
+        raise AssertionError("pair-list FSSR: face counts differ from the dense path's")
+    return dict(pairs=stg["pairs"], pairs_ms=stg["pairs_ms"], device_ms=stg["device_ms"],
+                wall=wg, peak=peak, beyond=beyond)
+
+
+# SIFT's upsampled first octave: views of the main scene (their octave -1
+# images are 3200x2400; they are smooth at pixel scale, and octave -1
+# finds next to nothing in them), one 1600x1200 view of the two planes
+# with a fine texture, in which it does, and the card against the CPU on
+# one 480x360 view with tests/test_torch_features.py's keypoint agreement.
+SIFT_VIEWS = 4
+# The fine texture: make_texture(size, smooth_sigma) of both planes.
+SIFT_FINE_TEXTURE = (2048, 1.5)
+
+
+def sift_agreement(ref, got):
+    """(recall, median and 99th percentile of the descriptor differences)
+    of test_torch_features._pair_up: each keypoint of ref has a partner in
+    got within 0.5 px, of the nearest orientation."""
+    pr, pg = np.stack([ref.x, ref.y], 1), np.stack([got.x, got.y], 1)
+    recall, diffs = 0, []
+    for i in range(len(pr)):
+        d = np.linalg.norm(pg - pr[i], axis=1)
+        near = np.nonzero(d < 0.5)[0]
+        if len(near):
+            dori = np.abs(np.angle(np.exp(1j * (ref.orientation[i] - got.orientation[near]))))
+            j = near[np.argmin(dori)]
+            recall += 1
+            diffs.append(np.linalg.norm(ref.descriptors[i] - got.descriptors[j]))
+    diffs = np.asarray(diffs) if diffs else np.ones(1)
+    return recall / max(len(pr), 1), float(np.median(diffs)), float(np.percentile(diffs, 99))
+
+
+def octave_minus_one(res):
+    """The keypoints of a SiftResult at scale < 1.6 (octave -1's), as the
+    fields sift_agreement reads."""
+    keep = res.scale < 1.6
+    return types.SimpleNamespace(x=res.x[keep], y=res.y[keep], orientation=res.orientation[keep],
+                                 descriptors=res.descriptors[keep])
+
+
+def phase_sift_upsampled():
+    """SIFT with min_octave=-1 against min_octave=0 on SIFT_VIEWS views of
+    1600x1200 and a finely textured view of that size, and card against
+    CPU on a 480x360 view, where octave -1's keypoints must pair up too."""
+    scene = Scene()
+    scene.load_scene(str(WORK / "main"))
+    cam = synthetic.make_cameras(2, spread=0.55, seed=0)[1]
+    size, sigma = SIFT_FINE_TEXTURE
+    fine = synthetic.render_two_plane_view(
+        synthetic.make_texture(size=size, seed=0, smooth_sigma=sigma),
+        synthetic.make_texture(size=size, seed=100, smooth_sigma=sigma), cam, MAIN_WIDTH,
+        MAIN_HEIGHT)
+    rows = []
+    for vid in [*range(SIFT_VIEWS), "fine"]:
+        img = fine if vid == "fine" else scene.get_view_by_id(vid).get_image("original")
+        counts = {}
+        for mo in (-1, 0):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = sift.detect_and_describe(img, sift.SiftOptions(min_octave=mo), device="cuda")
+            torch.cuda.synchronize()
+            counts[mo] = (len(res), time.perf_counter() - t0, torch.cuda.max_memory_allocated(),
+                          int((res.scale < 1.6).sum()),
+                          bool(np.isfinite(res.descriptors).all() and np.isfinite(res.x).all()))
+        (n1, t1, m1, fine1, ok1), (n0, t0_, m0, _, ok0) = counts[-1], counts[0]
+        name = (f"the fine texture {size}/{sigma:g}" if vid == "fine" else f"view {vid}")
+        print(f"  {name} ({img.shape[1]}x{img.shape[0]}): min_octave -1 {n1} keypoints "
+              f"({fine1} at scale < 1.6, octave -1's), {t1:.3f} s, max_memory_allocated {m1} "
+              f"bytes; min_octave 0 {n0} keypoints, {t0_:.3f} s, {m0} bytes", flush=True)
+        # The per-image path keeps every localised keypoint of octaves 0 and
+        # up, the batched path at most cap/2 of them: -1 finds no fewer. In
+        # the fine texture octave -1 must find keypoints of its own.
+        if not (ok1 and ok0) or n1 < n0 or (vid == "fine" and fine1 < 1000):
+            raise AssertionError("SIFT min_octave=-1: fewer keypoints, none of octave -1 in the "
+                                 "fine texture, or non-finite output")
+        rows.append(counts)
+    tex_far = synthetic.make_texture(seed=0, smooth_sigma=3.0)
+    tex_near = synthetic.make_texture(seed=100, smooth_sigma=3.0)
+    view = synthetic.render_two_plane_view(tex_far, tex_near, cam, 480, 360)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        res[dev] = sift.detect_and_describe(view, sift.SiftOptions(min_octave=-1), device=dev)
+        res[dev + "_s"] = time.perf_counter() - t0
+    recall, med, p99 = sift_agreement(res["cpu"], res["cuda"])
+    back, _, _ = sift_agreement(res["cuda"], res["cpu"])
+    # Octave -1's keypoints (scale < 1.6) alone, paired the same way.
+    fine = {dev: octave_minus_one(res[dev]) for dev in ("cuda", "cpu")}
+    f_recall, f_med, f_p99 = sift_agreement(fine["cpu"], fine["cuda"])
+    f_back, _, _ = sift_agreement(fine["cuda"], fine["cpu"])
+    print(f"  480x360, min_octave -1: card {len(res['cuda'])} keypoints in {res['cuda_s']:.3f} s, "
+          f"CPU {len(res['cpu'])} in {res['cpu_s']:.3f} s; recall {recall:.4f} / {back:.4f} "
+          f"(>=0.99), descriptor differences median {med:.3e} (<=1e-3), 99th percentile "
+          f"{p99:.3e} (<=0.05); octave -1's alone: card {len(fine['cuda'].x)}, CPU "
+          f"{len(fine['cpu'].x)} (>=100), recall {f_recall:.4f} / {f_back:.4f} (>=0.99), median "
+          f"{f_med:.3e}, 99th percentile {f_p99:.3e}", flush=True)
+    if recall < 0.99 or back < 0.99 or med > 1e-3 or p99 > 0.05 or len(res["cpu"]) < 100:
+        raise AssertionError("SIFT min_octave=-1: card and CPU disagree")
+    if min(len(fine["cuda"].x), len(fine["cpu"].x)) < 100 or f_recall < 0.99 or f_back < 0.99 \
+            or f_med > 1e-3 or f_p99 > 0.05:
+        raise AssertionError("SIFT min_octave=-1: octave -1's keypoints missing, or card and CPU "
+                             "disagree on them")
+    return rows
+
+
+FSSR_SPANS = ("fssr.voxel_set", "fssr.block_eval", "fssr.influence_pairs", "fssr.device_eval")
+# Phase 24 traces a tenth of phase 13's points: the spans, not the size,
+# are what it checks (IsoOctree's uniform grid is far larger than the
+# octree's corners at the same density).
+TRACE_EVERY = 10
+
+
+def phase_tracing():
+    """IsoOctree.compute_voxels on every TRACE_EVERY-th point of phase 12's
+    point set on the card, with the pair list and with the dense path,
+    under MVE_TPU_TRACE_DIR: a Chrome trace under <dir>/<span>/ for each
+    of the four FSSR spans, each naming its span; then once without the
+    variable, which writes nothing."""
+    trace_dir = WORK / "trace"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    samples = load_samples_from_ply(str(WORK / "main" / "pset-sub.ply"))
+    samples = samples.subset(np.arange(0, len(samples), TRACE_EVERY))
+    t0 = time.perf_counter()
+    with environ(MVE_TPU_TRACE_DIR=str(trace_dir)):
+        for pairwise in ("1", "0"):
+            with environ(MVE_TPU_FSSR_PAIRWISE=pairwise):
+                fssr_iso_octree.IsoOctree(device="cuda").compute_voxels(samples)
+    traced_s = time.perf_counter() - t0
+    found = {}
+    for span in FSSR_SPANS:
+        files = sorted((trace_dir / span).glob("*.json")) if (trace_dir / span).is_dir() else []
+        names = set()
+        for f in files:
+            names |= {e.get("name") for e in json.loads(f.read_text())["traceEvents"]}
+        kernels = sum(1 for f in files for e in json.loads(f.read_text())["traceEvents"]
+                      if e.get("cat") == "kernel")
+        found[span] = (len(files), span in names, kernels, sum(f.stat().st_size for f in files))
+    before = sorted(p.relative_to(trace_dir) for p in trace_dir.rglob("*"))
+    with environ(MVE_TPU_TRACE_DIR=None, MVE_TPU_FSSR_PAIRWISE="1"):
+        t0 = time.perf_counter()
+        fssr_iso_octree.IsoOctree(device="cuda").compute_voxels(samples)
+        plain_s = time.perf_counter() - t0
+    after = sorted(p.relative_to(trace_dir) for p in trace_dir.rglob("*"))
+    print(f"  {len(samples)} samples: traced (pair list, then dense) {traced_s:.3f} s; "
+          + "; ".join(f"{k}: {n} file(s), names the span {named}, {kern} kernel events, "
+                      f"{size} bytes" for k, (n, named, kern, size) in found.items())
+          + f"; untraced pair-list run {plain_s:.3f} s, files written without the variable: "
+          f"{len(after) - len(before)}", flush=True)
+    # compute_voxels runs twice (pair list, dense): two voxel-set traces.
+    want = {span: 2 if span == "fssr.voxel_set" else 1 for span in FSSR_SPANS}
+    if any(n != want[k] or not named for k, (n, named, _, _) in found.items()) or after != before:
+        raise AssertionError("tracing: a span's trace is missing or unnamed, or a file was "
+                             "written without MVE_TPU_TRACE_DIR")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    return found
+
 
 def main() -> int:
     phase("1. environment")
@@ -1943,6 +2494,13 @@ def main() -> int:
           f"(TMA loads)", flush=True)
     if not all(counts.values()):
         raise AssertionError("top2: no tensor-core or no TMA instruction in the machine code")
+    t0 = time.perf_counter()
+    log = native.build(force=True)
+    print(f"  [native] g++ {' '.join(native.CXX_FLAGS)} {native.SOURCE.name} -> "
+          f"{native.library_path().relative_to(ROOT)} in {time.perf_counter() - t0:.3f} s; "
+          f"compiler output: {log.strip() or '(none)'}", flush=True)
+    if native.get_lib() is None:
+        raise AssertionError("the native host library does not load")
 
     phase("3. top2 kernel against its plain version")
     check_err = phase_kernel_checks(dev)
@@ -1974,20 +2532,25 @@ def main() -> int:
 
     phase(f"11. dmrecon -s2, {MAIN_VIEWS} views of {MAIN_WIDTH}x{MAIN_HEIGHT} (depth maps of "
           f"{MAIN_WIDTH // 4}x{MAIN_HEIGHT // 4})")
-    phase_full_dmrecon()
+    full_dm = phase_full_dmrecon()
 
     phase("12. scene2pset -F2 on phase 11's depth maps")
     phase_pointset()
 
     phase(f"13. fssrecon card against CPU: every {FSSR_EVERY}th point of phase 12's point set "
           f"(default and streaming), and a scale-diverse set")
-    phase_fssr_card_vs_cpu()
+    fssr_sub = phase_fssr_card_vs_cpu()
 
-    phase("14. fssrecon on phase 12's whole point set")
+    cpu_view0 = start_cpu_view0()
+    phase("14. fssrecon on phase 12's whole point set (phase 11's view 0 on the CPU in a second "
+          "process meanwhile)")
     phase_full_fssr()
 
     phase("15. meshclean on phase 14's surface")
     phase_meshclean()
+
+    phase("11, continued. phase 11's view 0, card against CPU")
+    finish_cpu_view0(cpu_view0, full_dm["card_view0"])
 
     phase(f"16. makescene on the card and on the CPU: -i and -m on {MAIN_VIEWS} photos of "
           f"{MAIN_WIDTH}x{MAIN_HEIGHT}, a Bundler workspace of {BUNDLER_VIEWS} views")
@@ -2004,12 +2567,27 @@ def main() -> int:
     phase(f"19. featurerecon on {FEATURERECON_VIEWS} of phase 9's views of "
           f"{MAIN_WIDTH}x{MAIN_HEIGHT} and their cameras")
     feat = phase_featurerecon()
-    shutil.rmtree(WORK / "main", ignore_errors=True)
     shutil.rmtree(WORK / "makescene", ignore_errors=True)
 
     phase("20. the command line from a folder of 4 photos of 480x360: makescene, sfmrecon, "
-          "dmrecon, scene2pset, fssrecon, meshclean, then the host apps")
+          "dmrecon, scene2pset, fssrecon, meshclean, then the host apps and meshview")
     phase_cli()
+
+    phase(f"21. meshview at {VIEW_W}x{VIEW_H} on phase 15's surface with phase 9's scene; card "
+          f"against CPU on phase 13's surface")
+    phase_meshview()
+
+    phase(f"22. SIFT with min_octave=-1 on {SIFT_VIEWS} views of {MAIN_WIDTH}x{MAIN_HEIGHT}; card "
+          f"against CPU at 480x360")
+    phase_sift_upsampled()
+
+    phase("23. tracing: the four FSSR spans under MVE_TPU_TRACE_DIR")
+    phase_tracing()
+
+    phase(f"24. fssrecon with MVE_TPU_FSSR_PAIRWISE=1 on phase 13's point set: card twice, CPU, "
+          f"and the dense path")
+    phase_pairwise_fssr(*fssr_sub["default_card"])
+    shutil.rmtree(WORK / "main", ignore_errors=True)
 
     replaces = "mve_tpu/ops/pallas_matching.py:27"
     kernels = [
@@ -2034,4 +2612,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        stop_background()
+    sys.exit(code)

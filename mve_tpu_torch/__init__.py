@@ -1,10 +1,11 @@
 """mve_tpu_torch — the PyTorch/CUDA port of mve_tpu for NVIDIA Hopper.
 
 The package mirrors mve_tpu's layout so each module's counterpart is easy
-to find (core/, sfm/, sfm/bundler/, mvs/, ops/, apps/, utils/). Plain
-tensor code is PyTorch; the hand-written kernels so far are the fused
-descriptor top-2 search in csrc/top2.cu, a split pre-pass and a
-tensor-core product (bound in ops/top2.py).
+to find (core/, sfm/, sfm/bundler/, mvs/, fssr/, render/, math/,
+parallel/, ops/, native/, apps/, utils/). Plain tensor code is PyTorch;
+the hand-written kernels are the fused descriptor top-2 search in
+csrc/top2.cu, a split pre-pass and a tensor-core product (bound in
+ops/top2.py); native/ holds mve_tpu's C++ host library, built with g++.
 
 Nothing here imports jax or mve_tpu. Entry points take ``device=`` and
 default to ``"cuda"``; they raise when CUDA is absent unless the caller

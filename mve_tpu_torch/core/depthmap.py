@@ -309,6 +309,12 @@ def depthmap_mesh_confidences(mesh: TriangleMesh, iterations: int = 3) -> None:
         return
     n = mesh.num_vertices()
     info = MeshInfo(mesh)
+    from .. import native as _native
+
+    native_confs = _native.boundary_confidences(n, mesh.faces, info.vclass, iterations)
+    if native_confs is not None:
+        mesh.vertex_confidences = native_confs
+        return
     confs = np.ones(n, np.float32)
     ring = np.nonzero(info.vclass == MeshInfo.BORDER)[0]
 

@@ -142,7 +142,13 @@ class MeshInfo:
         corner_f = np.repeat(np.arange(len(faces), dtype=np.int64), 3)
         order = np.argsort(corner_v, kind="stable")
         self.vf = corner_f[order]
-        self.vclass = self._classify()
+        # The native classification where the port's host library is
+        # built (mve_tpu_torch/native), as mve_tpu does; the vectorised
+        # fallback otherwise gives the same classes.
+        from .. import native as _native
+
+        vclass = _native.classify_vertices(nv, faces)
+        self.vclass = vclass if vclass is not None else self._classify()
 
     def faces_of_vertex(self, v: int) -> np.ndarray:
         return self.vf[self.vf_off[v] : self.vf_off[v + 1]]

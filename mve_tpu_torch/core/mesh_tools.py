@@ -67,8 +67,14 @@ def mesh_merge(meshes: List[TriangleMesh]) -> TriangleMesh:
 
 
 def mesh_components(mesh: TriangleMesh) -> np.ndarray:
-    """Connected-component label per vertex (via union-find over edges)."""
+    """Connected-component label per vertex (via union-find over edges):
+    the native library's where built, else the same union-find in Python."""
     n = mesh.num_vertices()
+    from .. import native as _native
+
+    labels = _native.components(n, mesh.faces)
+    if labels is not None:
+        return labels
     parent = np.arange(n)
 
     def find(a):

@@ -3,28 +3,40 @@
 
 The host builds the voxel set with vectorised grid hashing; the device
 evaluates the implicit function at the voxels with the dense block
-program of block_eval.py.
+program of block_eval.py, or, with MVE_TPU_FSSR_PAIRWISE=1, with
+mve_tpu's pair-list evaluator: the (voxel, sample) influence pairs from
+the native library (the Python grid hashing without it), then the scale
+filter, the basis and the per-voxel sums of fssr/basis.py on the device.
 
 Reference semantics preserved: influence radius 3 x sample scale, the
 per-voxel scale filter (drop samples with scale > 2 x the voxel's
 10th-percentile influencing scale, iso_octree.cc:104-112), and the
 VoxelData fields {value, conf, deriv, scale, color}.
 
-mve_tpu's pair-list evaluator (behind MVE_TPU_FSSR_PAIRWISE=1, with
-fssr/basis.py and the native fssr_influence_pairs) is not ported yet
-(ROADMAP.md queue A item 22); with that variable set, evaluation raises.
+The stages are marked with utils.tracing.trace_stage spans of mve_tpu's
+names: fssr.voxel_set, fssr.block_eval, fssr.influence_pairs and
+fssr.device_eval.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import time
 
 import numpy as np
+import torch
 
+from .. import native as _native
 from .. import resolve_device
-from . import block_eval
+from ..utils.tracing import trace_stage
+from . import basis, block_eval
 from .sample import SampleList
+
+# The pair-list path's last run: pair count, which list (native or
+# python), host milliseconds of the pairing and of the device evaluation
+# (ending in the read back).
+STATS: dict = {}
 
 
 @dataclasses.dataclass
@@ -48,21 +60,94 @@ class VoxelGrid:
         return self.origin[None, :] + np.stack([ix, iy, iz], axis=-1) * self.cell_size
 
 
+def _shape_bucket(n: int, minimum: int = 4096) -> int:
+    """Next power of two >= n (mve_tpu's padded shapes: kept so the pair
+    arrays and their fixed-size chunks are the same in both packages)."""
+    size = minimum
+    while size < n:
+        size *= 2
+    return size
+
+
 def evaluate_at_positions(samples: SampleList, positions: np.ndarray,
                           device="cuda") -> dict:
     """Evaluate the FSSR implicit function at arbitrary positions.
 
     Returns dict of arrays value/conf/deriv/scale/color, each
-    len(positions): iso_octree.cc sample_ifn, batched through the dense
-    block program on `device`."""
+    len(positions): iso_octree.cc sample_ifn, batched on `device` through
+    the dense block program, or through the influence pairs with
+    MVE_TPU_FSSR_PAIRWISE=1."""
     dev = resolve_device(device)
-    if os.environ.get("MVE_TPU_FSSR_PAIRWISE") == "1":
-        raise NotImplementedError(
-            "MVE_TPU_FSSR_PAIRWISE=1 selects mve_tpu's pair-list evaluator, "
-            "which mve_tpu_torch does not port yet (ROADMAP.md queue A item "
-            "22); unset it to use the dense block evaluation")
-    sums = block_eval.evaluate_positions_blocked(samples, positions, device=dev)
+    if os.environ.get("MVE_TPU_FSSR_PAIRWISE") != "1":
+        with trace_stage("fssr.block_eval"):
+            sums = block_eval.evaluate_positions_blocked(samples, positions, device=dev)
+        return _normalize_sums(sums)
+
+    pos = samples.pos.astype(np.float64)
+    scale = samples.scale.astype(np.float64)
+    positions = np.asarray(positions, np.float64)
+    STATS.clear()
+    t0 = time.perf_counter()
+    with trace_stage("fssr.influence_pairs"):
+        # Both packages prefer the native list; it comes in another order
+        # than the Python one, which moves only the rounding of the sums.
+        native_pairs = _native.fssr_influence_pairs(positions, pos, scale)
+        if native_pairs is not None:
+            pair_v, pair_s = native_pairs
+        else:
+            pair_v, pair_s = IsoOctree._influence_pairs(
+                positions, pos, scale, float(np.median(scale)))
+    STATS.update(pairs=len(pair_v), source="native" if native_pairs is not None else "python",
+                 pairs_ms=1e3 * (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    with trace_stage("fssr.device_eval"):
+        sums = _evaluate_pairs(samples, positions, pair_v, pair_s, dev)
+    STATS["device_ms"] = 1e3 * (time.perf_counter() - t0)
     return _normalize_sums(sums)
+
+
+def _evaluate_pairs(samples: SampleList, positions, pair_v, pair_s, dev) -> np.ndarray:
+    """(V, 10) float64 sums over the influence pairs: the scale filter by
+    an on-device sort, then fixed-size chunks of pairs evaluated and summed
+    per voxel, added across chunks in float32 (mve_tpu's
+    iso_octree.py:101-131)."""
+    CHUNK = 4_194_304  # fixed evaluation chunk: bounded device memory
+    V, N = len(positions), len(samples.pos)
+    Vb, Nb = _shape_bucket(V), _shape_bucket(N)
+    Pb = _shape_bucket(len(pair_v), minimum=CHUNK)
+
+    def rows(arr, n, fill=0.0):
+        return torch.from_numpy(_pad_rows(np.asarray(arr, np.float32), n, fill)).to(dev)
+
+    d_positions = rows(positions, Vb)
+    d_pos = rows(samples.pos, Nb)
+    d_normal = rows(samples.normal, Nb, fill=(0.0, 0.0, 1.0))
+    d_scale = rows(samples.scale, Nb, fill=1.0)
+    d_conf = rows(samples.confidence, Nb)
+    d_color = rows(samples.color, Nb)
+    # Padding pairs point at the padded voxel row Vb, whose sums are dropped.
+    pv = np.full(Pb, Vb, np.int64)
+    pv[:len(pair_v)] = pair_v
+    ps = np.zeros(Pb, np.int64)
+    ps[:len(pair_s)] = pair_s
+    s_pv, s_ps, keep = basis.scale_filter_pairs(
+        d_scale, torch.from_numpy(pv).to(dev), torch.from_numpy(ps).to(dev), Vb)
+    sums = None
+    for start in range(0, Pb, CHUNK):
+        sl = slice(start, start + CHUNK)
+        out = basis.evaluate_pairs_masked(d_positions, d_pos, d_normal, d_scale, d_conf,
+                                          d_color, s_pv[sl], s_ps[sl], keep[sl])
+        sums = out if sums is None else sums + out
+    return sums.cpu().numpy().astype(np.float64)[:V]
+
+
+def _pad_rows(arr: np.ndarray, n: int, fill=0.0) -> np.ndarray:
+    """Pad axis 0 of arr to length n with a constant row."""
+    if arr.shape[0] >= n:
+        return arr
+    pad = np.empty((n - arr.shape[0],) + arr.shape[1:], arr.dtype)
+    pad[...] = fill
+    return np.concatenate([arr, pad])
 
 
 def _normalize_sums(sums: np.ndarray) -> dict:
@@ -167,7 +252,8 @@ class IsoOctree:
     def compute_voxels(self, samples: SampleList) -> VoxelGrid:
         if len(samples) == 0:
             raise ValueError("No samples given")
-        grid_args = self._build_voxel_set(samples)
+        with trace_stage("fssr.voxel_set"):
+            grid_args = self._build_voxel_set(samples)
         data = evaluate_at_positions(samples, grid_args[-1], device=self.device)
         origin, h, dims, voxel_codes, cells, _ = grid_args
         return VoxelGrid(
@@ -191,3 +277,58 @@ class IsoOctree:
         voxel_codes, cells = voxels_from_cells(uniq, dims)
         voxel_pos = voxel_positions(voxel_codes, origin, h, dims)
         return origin, h, dims, voxel_codes, cells, voxel_pos
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _influence_pairs(voxel_pos, pos, scale, h):
+        """All (voxel, sample) pairs with |v - p| < 3 * scale: the Python
+        grid hashing that stands in for the native fssr_influence_pairs
+        (mve_tpu's, copied; the same pairs in another order)."""
+        pair_v_list, pair_s_list = [], []
+        levels = np.clip(np.floor(np.log2(np.maximum(scale / h, 1e-3))).astype(int), -20, 30)
+        for lv in np.unique(levels):
+            sel = np.nonzero(levels == lv)[0]
+            max_r = 3.0 * scale[sel].max()
+            cell = max_r  # hash cell equals max influence radius
+            s_cell = np.floor(pos[sel] / cell).astype(np.int64)
+            v_cell = np.floor(voxel_pos / cell).astype(np.int64)
+            # linear codes with offset to avoid negatives
+            off = np.minimum(s_cell.min(axis=0), v_cell.min(axis=0)) - 1
+            span = np.maximum(s_cell.max(axis=0), v_cell.max(axis=0)) - off + 2
+
+            def code(c):
+                c = c - off
+                return (c[:, 2] * span[1] + c[:, 1]) * span[0] + c[:, 0]
+            s_codes = code(s_cell)
+            order = np.argsort(s_codes, kind="stable")
+            s_codes_sorted = s_codes[order]
+            sel_sorted = sel[order]
+            for dz in (-1, 0, 1):
+                for dy in (-1, 0, 1):
+                    for dx in (-1, 0, 1):
+                        q = v_cell + np.array([dx, dy, dz])
+                        q_codes = code(q)
+                        lo = np.searchsorted(s_codes_sorted, q_codes, "left")
+                        hi = np.searchsorted(s_codes_sorted, q_codes, "right")
+                        counts = hi - lo
+                        nz = np.nonzero(counts)[0]
+                        if len(nz) == 0:
+                            continue
+                        reps = counts[nz]
+                        v_ids = np.repeat(nz, reps)
+                        starts = lo[nz]
+                        # Vectorised range expansion: index k within its
+                        # group plus the group's start.
+                        total = int(reps.sum())
+                        group_start = np.repeat(starts, reps)
+                        group_base = np.repeat(np.cumsum(reps) - reps, reps)
+                        idx = group_start + (np.arange(total) - group_base)
+                        s_ids = sel_sorted[idx]
+                        d = voxel_pos[v_ids] - pos[s_ids]
+                        ok = np.sum(d * d, axis=1) < (3.0 * scale[s_ids]) ** 2
+                        pair_v_list.append(v_ids[ok])
+                        pair_s_list.append(s_ids[ok])
+        if not pair_v_list:
+            return np.zeros(0, np.int64), np.zeros(0, np.int64)
+        return np.concatenate(pair_v_list), np.concatenate(pair_s_list)
+

@@ -1,6 +1,7 @@
 """Degenerate-triangle cleanup (reference: libs/fssr/mesh_clean.h:23-37,
-mesh_clean.cc; port of mve_tpu/fssr/mesh_clean.py, host numpy, with
-mve_tpu's pure-Python union-find in place of its native binding).
+mesh_clean.cc; port of mve_tpu/fssr/mesh_clean.py, host numpy; the edge
+collapses run in the port's native library where it is built, else in
+mve_tpu's pure-Python union-find).
 
 clean_needles collapses edges shorter than needle_ratio x the longest
 incident edge; clean_caps collapses vertices whose incident triangles are
@@ -18,9 +19,32 @@ def _collapse_edges(mesh: TriangleMesh, edges: np.ndarray) -> int:
     """Collapse vertex b into a for each (a, b) edge; returns collapses."""
     if len(edges) == 0:
         return 0
+    from .. import native as _native
+
+    native_out = _native.collapse_edges(mesh.vertices, edges)
+    if native_out is not None:
+        count, target, new_verts = native_out
+        if count == 0:
+            return 0
+        mesh.vertices = new_verts
+    else:
+        count, target = _collapse_edges_python(mesh, edges)
+        if count == 0:
+            return 0
+    mesh.faces = target[mesh.faces].astype(np.int32)
+    ok = ((mesh.faces[:, 0] != mesh.faces[:, 1])
+          & (mesh.faces[:, 1] != mesh.faces[:, 2])
+          & (mesh.faces[:, 0] != mesh.faces[:, 2]))
+    mesh.faces = mesh.faces[ok]
+    mesh.delete_unreferenced_vertices()
+    return count
+
+
+def _collapse_edges_python(mesh: TriangleMesh, edges: np.ndarray):
+    """(count, target map) of the fallback: union-find in the order and
+    with the skip rule and float32 midpoints of mve_native.cpp's
+    mesh_collapse_edges; moves the surviving vertices in place."""
     n = mesh.num_vertices()
-    # Union-find, in the order and with the skip rule and float32
-    # midpoints of native/mve_native.cpp's mesh_collapse_edges.
     target = np.arange(n)
 
     def find(x):
@@ -40,15 +64,8 @@ def _collapse_edges(mesh: TriangleMesh, edges: np.ndarray) -> int:
         touched[ra] = True
         count += 1
     if count == 0:
-        return 0
-    target = np.array([find(i) for i in range(n)])
-    mesh.faces = target[mesh.faces].astype(np.int32)
-    ok = ((mesh.faces[:, 0] != mesh.faces[:, 1])
-          & (mesh.faces[:, 1] != mesh.faces[:, 2])
-          & (mesh.faces[:, 0] != mesh.faces[:, 2]))
-    mesh.faces = mesh.faces[ok]
-    mesh.delete_unreferenced_vertices()
-    return count
+        return 0, None
+    return count, np.array([find(i) for i in range(n)])
 
 
 def clean_needles(mesh: TriangleMesh, needle_ratio: float = 0.4) -> int:

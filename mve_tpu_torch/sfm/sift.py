@@ -17,6 +17,13 @@ jax.lax.top_k puts the lower index first among equal values and
 jnp.argsort is stable, so every such sort here is torch.sort(stable=True)
 followed by a slice. The slot caps are mve_tpu's: cap//2 keypoints after
 localisation (_compact_keypoints).
+
+With min_octave < 0 (the upsampled first octave) mve_tpu takes its
+per-image path, and so does the port (_detect_per_image): the octave -1
+image is image_tools.rescale_double_size of the input at twice the
+inherent blur, the keep masks are read back on the host between the
+stages, and each octave keeps every localised keypoint (no cap//2
+compaction).
 """
 
 from __future__ import annotations
@@ -582,10 +589,9 @@ def detect_and_describe_batch(images, options: SiftOptions = SiftOptions(),
     """SIFT over a list of images, batched over same-shape views
     (_MAX_FEATURE_BATCH at a time). Returns one SiftResult per image."""
     dev = resolve_device(device)
-    if options.min_octave < 0:
-        raise NotImplementedError(
-            "min_octave < 0 (upsampled first octave) is not ported yet")
     grays = [_to_gray_f32(im) for im in images]
+    if options.min_octave < 0:
+        return [_detect_per_image(g, options, dev) for g in grays]
     if len(set(g.shape for g in grays)) > 1:
         return [detect_and_describe_batch([g], options, dev)[0] for g in grays]
     out = []
@@ -640,9 +646,71 @@ def _detect_batch(grays, opts: SiftOptions, dev):
     return out
 
 
+def _detect_per_image(img: np.ndarray, opts: SiftOptions, dev) -> SiftResult:
+    """mve_tpu's per-image path (sfm/sift.py:721-800), which it takes for
+    min_octave < 0: per octave, detection on `cap` slots, then the kept
+    keypoints alone (read back on the host) through orientations, then
+    each (keypoint, orientation) through descriptors. The stages are the
+    batched ones with a batch of one."""
+    S = opts.num_samples_per_octave
+    gray = torch.from_numpy(np.ascontiguousarray(img, np.float32)).to(dev)
+    octave_inputs = []
+    if opts.min_octave < 0:
+        up = image_tools.rescale_double_size(gray[:, :, None])[:, :, 0]
+        octave_inputs.append((-1, up, opts.inherent_blur_sigma * 2.0))
+    base = gray
+    img_sigma = opts.inherent_blur_sigma
+    for _ in range(opts.min_octave):
+        base = image_tools.half_size_gaussian_planes(base)
+    for o in range(max(0, opts.min_octave), opts.max_octave + 1):
+        if base.shape[0] < 16 or base.shape[1] < 16:
+            break
+        octave_inputs.append((o, base, img_sigma))
+        base = image_tools.half_size_gaussian_planes(base)
+        img_sigma = opts.base_blur_sigma
+
+    parts = []
+    for oct_idx, oct_img, has_sigma in octave_inputs:
+        H, W = oct_img.shape
+        cap = min(opts.max_keypoints_per_octave, max(256, S * H * W // 64))
+        cap = _pad_to_bucket(cap, opts.max_keypoints_per_octave)
+        gauss, x, y, s, keep = _octave_detect(
+            oct_img[None], S, opts.base_blur_sigma, float(has_sigma), cap,
+            opts.eff_contrast_threshold, opts.edge_ratio_threshold)
+        keep = keep[0]
+        if not bool(keep.any()):
+            continue
+        kx, ky, ks = x[0][keep], y[0][keep], s[0][keep]
+        grad, orient = _grad_ori(gauss)
+        oris, ori_valid = _assign_orientations(
+            grad, orient, kx[None], ky[None], ks[None], torch.ones_like(kx, dtype=torch.bool)[None],
+            S, opts.base_blur_sigma, opts.max_orientations_per_keypoint)
+        kp_rep, ori_flat = torch.nonzero(ori_valid[0], as_tuple=True)
+        if len(kp_rep) == 0:
+            continue
+        dx, dy, ds = kx[kp_rep], ky[kp_rep], ks[kp_rep]
+        do = oris[0][kp_rep, ori_flat]
+        desc, keep_d = _compute_descriptors(
+            grad, orient, dx[None], dy[None], ds[None], do[None],
+            torch.ones_like(dx, dtype=torch.bool)[None], S, opts.base_blur_sigma)
+        keep_d = keep_d[0]
+        if not bool(keep_d.any()):
+            continue
+        fx, fy, fs, fo, fd = (a.cpu().numpy() for a in
+                              (dx[keep_d], dy[keep_d], ds[keep_d], do[keep_d], desc[0][keep_d]))
+        scale_factor = 2.0 ** oct_idx
+        parts.append((scale_factor * (fx + 0.5) - 0.5, scale_factor * (fy + 0.5) - 0.5,
+                      opts.base_blur_sigma * 2.0 ** (oct_idx + (fs + 1.0) / S), fo, fd))
+    if not parts:
+        return _empty_result()
+    return SiftResult(*(np.concatenate([p[k] for p in parts]).astype(np.float32)
+                        for k in range(5)))
+
+
 def detect_and_describe(image, options: SiftOptions = SiftOptions(),
                         device="cuda") -> SiftResult:
-    """SIFT on one image: the batched pipeline with a batch of one.
+    """SIFT on one image: the batched pipeline with a batch of one (the
+    per-image path with min_octave < 0, as mve_tpu).
 
     Returns descriptors in input-pixel coordinates (Sift::process +
     get_descriptors, sift.cc:42-168)."""

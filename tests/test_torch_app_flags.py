@@ -5,8 +5,7 @@ option string of it (each alias, and each subcommand's options), one
 command line goes through both packages' main(). The work is stubbed:
 ArgumentParser.parse_args raises right after it returns, so no app runs.
 Both namespaces must be equal, but for the port's --device, which is the
-only option the port may add. meshview (the viewer, ROADMAP.md A27) is
-not ported yet and is the one expected skip.
+only option the port may add.
 """
 
 import argparse
@@ -20,7 +19,6 @@ torch.set_num_threads(1)
 APPS = ("sfmrecon", "dmrecon", "scene2pset", "fssrecon", "meshclean", "makescene",
         "prebundle", "featurerecon", "bundle2pset", "mesh2pset", "meshconvert",
         "meshalign", "sceneupgrade", "sceneinspect", "meshview")
-NOT_PORTED = {"meshview": "the viewer is ROADMAP.md item A27"}
 PORT_ONLY = {"--device"}
 
 
@@ -45,13 +43,15 @@ def parse(main, argv, monkeypatch):
 
 
 def _value(action):
+    """One value per argument the option takes (nargs=3 takes three)."""
+    n = action.nargs if isinstance(action.nargs, int) else 1
     if action.choices:
-        return [str(next(iter(action.choices)))]
+        return [str(next(iter(action.choices)))] * n
     if action.type is int:
-        return ["3"]
+        return ["3"] * n
     if action.type is float:
-        return ["0.5"]
-    return ["v"]
+        return ["0.5"] * n
+    return ["v"] * n
 
 
 def _positionals(parser):
@@ -125,8 +125,6 @@ def test_every_reference_option_parses_in_the_port(app, monkeypatch):
         with pytest.raises(_Parsed):
             jmain([])
     jparser = seen["parser"]
-    if app in NOT_PORTED:
-        pytest.skip(f"{app} is not ported: {NOT_PORTED[app]}")
     pmain = importlib.import_module(f"mve_tpu_torch.apps.{app}").main
 
     lines = command_lines(jparser)

@@ -86,7 +86,92 @@ def test_byte_float_conversions_match_jax(view):
     np.testing.assert_array_equal(image_tools.to_byte(f), jax_tools.to_byte(f))
 
 
-def test_first_octave_upsampling_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        sift.detect_and_describe(np.zeros((32, 32), np.uint8),
-                                 sift.SiftOptions(min_octave=-1), device="cpu")
+@pytest.fixture(scope="module")
+def small_view():
+    tex_far = synthetic.make_texture(seed=0, smooth_sigma=3.0)
+    tex_near = synthetic.make_texture(seed=100, smooth_sigma=3.0)
+    cam = synthetic.make_cameras(2, spread=0.55, seed=0)[1]
+    return synthetic.render_two_plane_view(tex_far, tex_near, cam, 160, 120)
+
+
+def test_first_octave_upsampling_matches_jax(small_view):
+    """min_octave=-1 (an octave -1 image of 320x240 from a 160x120 view)
+    through mve_tpu's per-image path in both packages, with the keypoint
+    agreement of test_features_match_jax, both ways; the upsampled octave
+    adds keypoints to those of min_octave=0."""
+    opts = dict(min_octave=-1)
+    ref = jax_sift.detect_and_describe(small_view, jax_sift.SiftOptions(**opts))
+    got = sift.detect_and_describe(small_view, sift.SiftOptions(**opts), device="cpu")
+    assert len(ref) > 200
+    recall, diff = _pair_up(ref, got)
+    back, _ = _pair_up(got, ref)
+    assert recall >= 0.99 and back >= 0.99, f"keypoint recall {recall:.4f} / {back:.4f}"
+    assert np.median(diff) <= 1e-3 and np.percentile(diff, 99) <= 0.05
+    np.testing.assert_allclose(np.linalg.norm(got.descriptors, axis=1), 1.0, atol=1e-5)
+    base = sift.detect_and_describe_batch([small_view], device="cpu")[0]
+    assert len(got) > len(base)
+    assert (got.scale < 1.6).sum() > 0 and (base.scale < 1.6).sum() == 0
+
+
+@pytest.mark.parametrize("shape", [(23, 31, 3), (31, 23, 3), (40, 40, 1), (17, 16, 2)])
+def test_rescale_double_size_bit_identical(shape):
+    """jax.image.resize(..., "linear") at 2x renormalises its kernel at
+    the borders, where F.interpolate clamps: at exactly 2x both give the
+    same weights, but F.interpolate rounds the two taps apart from XLA on
+    about 30% of the pixels (1 ulp). The port's two-tap version rounds as
+    XLA's CPU dots do and is bit-identical at these sizes."""
+    img = np.random.RandomState(4).rand(*shape).astype(np.float32)
+    ref = np.asarray(jax_tools.rescale_double_size(jnp.asarray(img)))
+    got = image_tools.rescale_double_size(torch.from_numpy(img)).numpy()
+    np.testing.assert_array_equal(got, ref)
+    t = torch.from_numpy(img).permute(2, 0, 1)[None]
+    interp = torch.nn.functional.interpolate(t, scale_factor=2, mode="bilinear",
+                                             align_corners=False)[0].permute(1, 2, 0).numpy()
+    np.testing.assert_allclose(interp, ref, atol=2e-7)
+
+
+@pytest.mark.parametrize("fn, args, atol", [
+    ("rescale_double_size_supersample", (), 0.0),
+    ("resize", (11, 40, "linear"), 2e-7),     # antialiased downsampling rows
+    ("resize", (50, 17, "linear"), 2e-7),
+    ("resize", (46, 62, "linear"), 2e-7),
+    ("resize", (11, 40, "nearest"), 0.0),
+    ("resize", (50, 70, "nearest"), 0.0),
+    ("blur_boxfilter", (1,), 2e-7),           # F.conv2d sums in another order
+    ("blur_boxfilter", (3,), 2e-7),
+    ("desaturate", ("luminosity",), 1e-7),
+    ("desaturate", ("luminance",), 1e-7),
+    ("desaturate", ("lightness",), 1e-7),
+    ("desaturate", ("average",), 1e-7),
+    ("gamma_correct", (2.2,), 1e-7),
+    ("crop", (3, 4, 10, 7), 0.0),
+    ("rotate90", (True,), 0.0),
+    ("rotate90", (False,), 0.0),
+    ("flip", (True, False), 0.0),
+    ("flip", (False, True), 0.0),
+])
+def test_image_tools_match_jax(fn, args, atol):
+    img = np.random.RandomState(3).rand(23, 31, 3).astype(np.float32) - 0.1
+    ref = np.asarray(getattr(jax_tools, fn)(jnp.asarray(img), *args))
+    got = getattr(image_tools, fn)(torch.from_numpy(img), *args).numpy()
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("fn, args, atol", [
+    ("image_undistort_vsfm", (1.1, 0.3), 5e-6),    # six Newton steps, fused
+    ("image_undistort_vsfm", (0.9, -0.2), 5e-6),   # multiply-adds in XLA
+    ("image_undistort_vsfm", (0.9, 0.0), 0.0),
+    ("image_undistort_msps", (0.05, -0.02), 1e-7),
+    ("image_undistort_msps", (0.05, 0.05), 0.0),
+])
+def test_undistortion_and_sampling_match_jax(fn, args, atol):
+    rng = np.random.RandomState(5)
+    img = rng.rand(23, 31, 3).astype(np.float32)
+    ref = np.asarray(getattr(jax_tools, fn)(img, *args))
+    got = getattr(image_tools, fn)(img, *args, device="cpu")
+    np.testing.assert_allclose(got, ref, rtol=0, atol=atol)
+    xy = rng.uniform(-2, 33, (40, 2)).astype(np.float32)
+    np.testing.assert_array_equal(
+        image_tools.bilinear_sample(torch.from_numpy(img), torch.from_numpy(xy)).numpy(),
+        np.asarray(jax_tools.bilinear_sample(img, jnp.asarray(xy))))

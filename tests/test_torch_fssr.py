@@ -18,8 +18,10 @@ import torch
 
 import jax.numpy as jnp
 
+from mve_tpu import native as jnative
 from mve_tpu.core import mesh_io as jmesh_io
 from mve_tpu.core.mesh import TriangleMesh as JMesh
+from mve_tpu.fssr import basis as jbasis
 from mve_tpu.fssr import block_eval as jbe
 from mve_tpu.fssr import dual_contouring as jdc
 from mve_tpu.fssr import iso_octree as jio
@@ -31,6 +33,7 @@ from mve_tpu.fssr.iso_surface import IsoSurface as JIsoSurface
 
 from mve_tpu_torch.core import mesh_io as pmesh_io
 from mve_tpu_torch.core.mesh import TriangleMesh as PMesh
+from mve_tpu_torch.fssr import basis as pbasis
 from mve_tpu_torch.fssr import block_eval as pbe
 from mve_tpu_torch.fssr import dual_contouring as pdc
 from mve_tpu_torch.fssr import iso_octree as pio
@@ -472,12 +475,168 @@ def test_mesh_clean_identical(fn, tmp_path):
     assert a == b
 
 
-def test_pairwise_path_raises(monkeypatch):
-    """mve_tpu's pair-list evaluator is not ported: asking for it raises
-    instead of silently taking the block path."""
-    _, ps = sphere(n=300)
+@pytest.mark.parametrize("make", [sphere, hemispheres, step_planes])
+def test_pairwise_path_matches_jax(make, monkeypatch):
+    """MVE_TPU_FSSR_PAIRWISE=1: mve_tpu's pair-list evaluator in both
+    packages on the same voxels, both from the native influence pairs.
+    The scale filter keeps the same (voxel, sample) pairs; each column of
+    the corner sums is within 1e-6 of its largest magnitude (the float32
+    sums round apart: exp, and XLA's fused multiply-adds), confidence
+    > 0 on one side only at no more than 0.5% of the corners (the rim of
+    the weight, where w(q) cancels to +-4e-7), and the port's pair list
+    matches its dense block evaluation to the same limits."""
+    js, ps = make()
+    positions = jio.IsoOctree()._build_voxel_set(js)[-1]
+    sums = {}
+    for mod, key in ((jio, "jax"), (pio, "port")):
+        def keep(s, real=mod._normalize_sums, key=key):
+            sums[key] = np.array(s)
+            return real(s)
+        monkeypatch.setattr(mod, "_normalize_sums", keep)
     monkeypatch.setenv("MVE_TPU_FSSR_PAIRWISE", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pio.evaluate_at_positions(ps, np.zeros((4, 3)), device="cpu")
-    with pytest.raises(NotImplementedError):
-        pio.IsoOctree(device="cpu").compute_voxels(ps)
+    jio.evaluate_at_positions(js, positions)
+    pio.evaluate_at_positions(ps, positions, device="cpu")
+    assert pio.STATS["source"] == "native" and pio.STATS["pairs"] > 10_000
+    monkeypatch.setenv("MVE_TPU_FSSR_PAIRWISE", "0")
+    dense = np.array(pbe.evaluate_positions_blocked(ps, positions, device="cpu"))
+    for other in (sums["jax"], dense):
+        scale = np.abs(other).max(axis=0)
+        rel = np.abs(sums["port"] - other) / np.where(scale > 0, scale, 1.0)
+        assert rel.max() <= 1e-6
+        assert ((sums["port"][:, 1] > 0) != (other[:, 1] > 0)).sum() <= 0.005 * len(positions)
+
+
+def _rim_decision_set(seed=11, offset=8.0, per_sample=10):
+    """Samples and corners at which the pair list and the dense path take
+    a sample into a corner's influence set differently. A plane of
+    scale-0.3 samples, 0.6 apart, with 12 samples of scale 0.06 on it,
+    moved to about (8, 8, 8), where a float32 coordinate rounds by up to
+    4.8e-7. The corners lie on the rims |c - p| = 3 s of the small
+    samples, each where the exact distance falls on one side of the rim
+    and the distance from the corner rounded to float32 on the other,
+    both at least 1e-6 of the radius off it. So the native list (float64)
+    and the dense path (float32 corners) decide the small sample apart,
+    however either package orders or fuses its float32 arithmetic. With
+    5-9 large samples in reach, the small one decides the count//10-th
+    scale, and with it whether the large ones pass the scale filter.
+    Also 400 corners near the plane, off every rim."""
+    rng = np.random.RandomState(seed)
+    g = np.linspace(-1.8, 1.8, 7)
+    gx, gy = np.meshgrid(g, g)
+    big = np.stack([gx.ravel(), gy.ravel(), 0.02 * rng.randn(gx.size)], 1)
+    small = np.stack([rng.uniform(-1.2, 1.2, 12), rng.uniform(-1.2, 1.2, 12),
+                      0.02 * rng.randn(12)], 1)
+    pos = (np.concatenate([big, small]) + offset).astype(np.float32)
+    normal = np.tile([0.0, 0.0, 1.0], (len(pos), 1)) + 0.05 * rng.randn(len(pos), 3)
+    normal /= np.linalg.norm(normal, axis=1, keepdims=True)
+    scale = np.concatenate([np.full(len(big), 0.3), np.full(len(small), 0.06)])
+    js, ps = _pair(pos, normal, scale.astype(np.float32), seed)
+    p64 = pos.astype(np.float64)
+    rims = []
+    for i in range(len(big), len(pos)):
+        d = rng.randn(2000, 3)
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        r = 3.0 * scale[i]
+        c = p64[i] + d * r * (1 + 4e-6 * rng.uniform(-1, 1, (2000, 1)))
+        exact = np.linalg.norm(c - p64[i], axis=1) / r - 1
+        cast = np.linalg.norm(c.astype(np.float32).astype(np.float64) - p64[i], axis=1) / r - 1
+        apart = ((exact < 0) != (cast < 0)) & (np.abs(exact) > 1e-6) & (np.abs(cast) > 1e-6)
+        rims.append(c[apart][:per_sample])
+    rims = np.concatenate(rims)
+    plain = p64[rng.randint(len(big), size=400)] + rng.uniform(-0.4, 0.4, (400, 3))
+    return js, ps, rims, plain
+
+
+def test_pairwise_and_dense_differ_alike_at_rim_decisions(monkeypatch):
+    """mve_tpu's own two evaluators differ by design where a sample lies
+    within a float32 rounding of a corner's influence radius: the native
+    pair list tests |c - p| < 3 s in float64, the dense path in float32,
+    so one takes the sample and the other not, and a small sample moves
+    the scale filter's threshold. On _rim_decision_set, mve_tpu's pair
+    list and dense path differ beyond 1e-5 of a column's largest
+    magnitude at rim corners only (at least 10 of them, by more than a
+    tenth of the sums' scale), and the port's two differ at the same
+    corners by the same amount: at every corner the port's pair list is
+    within 1e-6 of mve_tpu's (test_pairwise_path_matches_jax's limit)
+    and its dense path within 1e-5 of mve_tpu's
+    (test_evaluate_positions_blocked's). Off the rims the two evaluators
+    agree within 1e-6. Measured: 93 of the 111 rim corners apart, by up
+    to 1.2 of a column's largest; the packages' pair lists 6.8e-7 apart,
+    their dense paths 1.0e-6; off the rims 5.3e-7."""
+    js, ps, rims, plain = _rim_decision_set()
+    positions = np.concatenate([rims, plain])
+    sums = {}
+    for mod, key in ((jio, "jax"), (pio, "port")):
+        def keep(s, real=mod._normalize_sums, key=key):
+            sums[key] = np.array(s, np.float64)
+            return real(s)
+        monkeypatch.setattr(mod, "_normalize_sums", keep)
+    monkeypatch.setenv("MVE_TPU_FSSR_PAIRWISE", "1")
+    jio.evaluate_at_positions(js, positions)
+    pio.evaluate_at_positions(ps, positions, device="cpu")
+    assert pio.STATS["source"] == "native"
+    jpair, ppair = sums["jax"], sums["port"]
+    jdense = np.asarray(jbe.evaluate_positions_blocked(js, positions), np.float64)
+    pdense = np.asarray(pbe.evaluate_positions_blocked(ps, positions, device="cpu"), np.float64)
+    assert pbe.STATS["path"] == "bisect"
+    col = np.abs(jdense).max(axis=0)
+
+    def rel(a, b):
+        return (np.abs(a - b) / col).max(axis=1)
+
+    assert rel(ppair, jpair).max() <= 1e-6 and rel(pdense, jdense).max() <= 1e-5
+    jdiff, pdiff = rel(jpair, jdense), rel(ppair, pdense)
+    apart = np.nonzero(jdiff > 1e-5)[0]
+    np.testing.assert_array_equal(np.nonzero(pdiff > 1e-5)[0], apart)
+    assert len(apart) >= 10 and apart.max() < len(rims) and jdiff.max() > 0.1
+    assert jdiff[len(rims):].max() <= 1e-6 and pdiff[len(rims):].max() <= 1e-6
+
+
+def test_pairwise_scale_filter_keeps_the_same_pairs():
+    """scale_filter_pairs on the device against mve_tpu's, on the
+    hemispheres' native pairs padded to a bucket: the same kept (voxel,
+    sample) pairs, in voxel order, and every pair of a voxel at its
+    scale's rank (mve_tpu's sort is not stable, so the order among equal
+    scales may differ)."""
+    js, ps = hemispheres()
+    positions = jio.IsoOctree()._build_voxel_set(js)[-1]
+    pos, scale = ps.pos.astype(np.float64), ps.scale.astype(np.float64)
+    pv, pss = jnative.fssr_influence_pairs(positions, pos, scale)
+    Vb, Pb = pio._shape_bucket(len(positions)), pio._shape_bucket(len(pv), minimum=1 << 18)
+    v = np.full(Pb, Vb, np.int64)
+    v[:len(pv)] = pv
+    s = np.zeros(Pb, np.int64)
+    s[:len(pss)] = pss
+    d_scale = np.ones(pio._shape_bucket(len(scale)), np.float32)
+    d_scale[:len(scale)] = ps.scale
+    jv, js_, jk = (np.asarray(a) for a in jbasis.scale_filter_pairs(
+        jnp.asarray(d_scale), jnp.asarray(v.astype(np.int32)), jnp.asarray(s.astype(np.int32)),
+        num_voxels=Vb))
+    tv, ts, tk = (a.numpy() for a in pbasis.scale_filter_pairs(
+        torch.from_numpy(d_scale), torch.from_numpy(v), torch.from_numpy(s), Vb))
+    np.testing.assert_array_equal(tv, jv)
+    np.testing.assert_array_equal(d_scale[ts], d_scale[js_])
+    np.testing.assert_array_equal(tk, jk)
+    assert 0 < tk.sum() < len(pv)
+    assert set(zip(tv[tk].tolist(), ts[tk].tolist())) == set(zip(jv[jk].tolist(), js_[jk].tolist()))
+
+
+def test_evaluate_pairs_indexed_matches_jax():
+    """basis.evaluate_pairs_indexed on the sphere's native pairs, in the
+    native order (the port sorts them by voxel before its fixed-order
+    sums): each column within 1e-6 of its largest magnitude."""
+    js, ps = sphere(n=400)
+    positions = jio.IsoOctree()._build_voxel_set(js)[-1]
+    pos, scale = ps.pos.astype(np.float64), ps.scale.astype(np.float64)
+    pv, pss = jnative.fssr_influence_pairs(positions, pos, scale)
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    args = [f32(positions), ps.pos, ps.normal, ps.scale, ps.confidence, ps.color]
+    want = np.asarray(jbasis.evaluate_pairs_indexed(
+        *map(jnp.asarray, args), jnp.asarray(pv.astype(np.int32)),
+        jnp.asarray(pss.astype(np.int32)), jnp.zeros(len(positions))))
+    got = pbasis.evaluate_pairs_indexed(
+        *map(torch.from_numpy, args), torch.from_numpy(pv), torch.from_numpy(pss),
+        len(positions)).numpy()
+    assert got.shape == want.shape == (len(positions), 10)
+    scale_col = np.abs(want).max(axis=0)
+    assert (np.abs(got - want) / scale_col).max() <= 1e-6
