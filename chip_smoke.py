@@ -143,7 +143,29 @@ Phases, each printed as it runs; any failure raises and ends the run:
      card (bit-identical); card against CPU on every PAIR_CPU_EVERY-th
      corner with phase 13's limits, and against phase 13's dense card run
      with phase 13's limits at all but PAIR_RIM_SHARE of the corners and
-     within PAIR_RIM_TOL there.
+     within PAIR_RIM_TOL there;
+ 25. bundle adjustment (optimize_arrays) at the size of the Dubrovnik
+     problem of "Bundle Adjustment in the Large" (BAL_CAMS cameras,
+     BAL_POINTS points, BAL_OBS_PER_POINT observations a point), LM steps
+     and CG iterations capped (BAL_LM_STEPS, BAL_CG_ITERS), with no mesh
+     and over meshes of BAL_SHARDS shards on cuda:0, in float32 and
+     float64: wall time, LM steps, CG iterations, reductions per CG
+     iteration and peak memory of each run; one shard bit-identical to no
+     mesh, the others within SHARD_TOLS of it, every run lowering the MSE;
+ 26. two processes on the card in a gloo group (multihost.initialize,
+     global_mesh): phase 25's float32 BA bit-identical to its in-process
+     two-shard run, and an FSSR evaluation bit-identical to mesh=None;
+     then one process in an NCCL group of one, its BA bit-identical to
+     phase 25's unsharded float32 run; a failing rank fails the phase;
+ 27. phase 13's default card evaluation again over FSSR_SHARDS shards on
+     cuda:0 and with no mesh: both bit-identical to phase 13's sums;
+ 28. the torch functions of core/image_color, math/geometry and
+     math/intersect on the card against the CPU (LIBRARY_TOL, hit masks
+     equal) on view 0's image and phase 15's surface;
+ 29. sfmrecon's incremental SfM from phase 5's prebundle with its BA
+     mesh over two shards on cuda:0 (every BA sharded): 40/40 cameras,
+     tracks within 1% of phase 9's, centres within 2%, BA totals beside
+     phase 9's.
 Each phase's header says how far into the script it starts.
 It prints one JSON line describing every kernel, and as its last line
 {"ok": true, "device": {...}}. It exits non-zero without a result when
@@ -172,7 +194,7 @@ import mve_tpu_torch
 from mve_tpu_torch import native, synthetic
 from mve_tpu_torch.apps import (dmrecon, featurerecon, fssrecon, makescene, meshclean, meshview,
                                 scene2pset, sfmrecon)
-from mve_tpu_torch.core import Scene, image_io, image_tools
+from mve_tpu_torch.core import Scene, image_color, image_io, image_tools
 from mve_tpu_torch.core.bundle_io import load_mve_bundle
 from mve_tpu_torch.core.mesh import TriangleMesh
 from mve_tpu_torch.core.mesh_io import load_mesh, save_mesh
@@ -182,7 +204,8 @@ from mve_tpu_torch.fssr import dual_contouring as fssr_dc
 from mve_tpu_torch.fssr import iso_octree as fssr_iso_octree
 from mve_tpu_torch.fssr import streaming as fssr_streaming
 from mve_tpu_torch.fssr.mesh_clean import clean_mc_mesh
-from mve_tpu_torch.fssr.sample import load_samples_from_ply
+from mve_tpu_torch.fssr.sample import SampleList, load_samples_from_ply
+from mve_tpu_torch.math import geometry, intersect
 from mve_tpu_torch.mvs import Settings as MvsSettings
 from mve_tpu_torch.mvs import dmrecon as mvs_dmrecon
 from mve_tpu_torch.mvs import patch as mvs_patch
@@ -190,10 +213,12 @@ from mve_tpu_torch.mvs import sweep_solver as mvs_sweep
 from mve_tpu_torch.mvs import view_selection as mvs_vs
 from mve_tpu_torch.ops import cuda_build, top2 as top2_mod
 from mve_tpu_torch.ops.matching import descriptor_top2, descriptor_top2_pairs, split_tf32
+from mve_tpu_torch.parallel import get_mesh, multihost
 from mve_tpu_torch.render import rasterizer
 from mve_tpu_torch.sfm import matching as sfm_matching
 from mve_tpu_torch.sfm import sift
 from mve_tpu_torch.sfm.ba import BAOptions, optimize_arrays
+from mve_tpu_torch.sfm.ba import core as ba_core, lm as ba_lm
 from mve_tpu_torch.sfm.bundler import Intrinsics, IntrinsicsOptions, matching_batched
 from mve_tpu_torch.sfm.bundler import init_pair as init_pair_mod
 from mve_tpu_torch.sfm.bundler.common import Viewport, load_prebundle
@@ -201,7 +226,7 @@ from mve_tpu_torch.sfm.bundler.features import Features
 from mve_tpu_torch.sfm.bundler.incremental import _determine_similarity
 from mve_tpu_torch.sfm.bundler.init_pair import InitialPair
 from mve_tpu_torch.sfm.bundler.matching import Matching, MatchingOptions
-from mve_tpu_torch.sfm.bundler.pipeline import SfmOptions
+from mve_tpu_torch.sfm.bundler.pipeline import SfmOptions, run_incremental_sfm
 from mve_tpu_torch.sfm.bundler.tracks import Tracks
 from mve_tpu_torch.sfm.cascade_hashing import CascadeHashing
 
@@ -859,6 +884,17 @@ def device_profile(fn, top=0):
     return out, wall, sum(ms for _, ms, _ in tops), tops[:top]
 
 
+def ba_gaps(a, b):
+    """Final MSE (relative) and parameters (absolute) of two
+    optimize_arrays results, apart at most."""
+    gaps = dict(mse=abs(a[4].final_mse - b[4].final_mse) / b[4].final_mse)
+    for name, x, y in (("focal", a[0][:, 0], b[0][:, 0]), ("distortion", a[0][:, 1:], b[0][:, 1:]),
+                       ("translation", a[1], b[1]), ("rotation", a[2], b[2]),
+                       ("points", a[3], b[3])):
+        gaps[name] = float(np.abs(x - y).max())
+    return gaps
+
+
 def phase_ba():
     """optimize_arrays at the size of ROADMAP.md item 6 (bench.py's BA):
     card against CPU from the same arrays, float32 on both. Limits: LM
@@ -893,11 +929,7 @@ def phase_ba():
         a[4].final_mse == b[4].final_mse and a[4].num_cg_iterations == b[4].num_cg_iterations
     print(f"  two card runs bit-identical: {identical}", flush=True)
     steps = abs(a[4].num_lm_iterations - c[4].num_lm_iterations)
-    gaps = dict(mse=abs(a[4].final_mse - c[4].final_mse) / c[4].final_mse)
-    for name, x, y in (("focal", a[0][:, 0], c[0][:, 0]), ("distortion", a[0][:, 1:], c[0][:, 1:]),
-                       ("translation", a[1], c[1]), ("rotation", a[2], c[2]),
-                       ("points", a[3], c[3])):
-        gaps[name] = float(np.abs(x - y).max())
+    gaps = ba_gaps(a, c)
     print(f"  card against CPU: LM steps {a[4].num_lm_iterations} / {c[4].num_lm_iterations} "
           f"(<=1 apart), {n_obs} observations; apart at most (limit): "
           + ", ".join(f"{k} {v:.3e} ({BA_TOLS[k]:g})" for k, v in gaps.items())
@@ -1462,7 +1494,12 @@ def phase_fssr_card_vs_cpu():
             (f"stream, chunks of {FSSR_STREAM_CHUNK}", scene / "pset-sub.ply",
              dict(stream=True, stream_chunk_size=FSSR_STREAM_CHUNK)),
             ("scale-diverse, max_level 14", scene / "pset-diverse.ply", dict(max_level=14))):
-        runs = {dev: corner_sums_run(path, dev, **kw) for dev in ("cuda", "cpu")}
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            with recording(fssr_block_eval, "evaluate_positions_blocked") as evals:
+                runs[dev] = corner_sums_run(path, dev, **kw)
+            if label == "default" and dev == "cuda":
+                worst["default_eval"] = evals[0]            # phase 27's unsharded reference
         (mg, sg, wg, lg, bg), (mc, sc, wc, lc, _) = runs["cuda"], runs["cpu"]
         if sg.shape != sc.shape:
             raise AssertionError(f"{label}: {len(sg)} corners on the card, {len(sc)} on the CPU")
@@ -1654,10 +1691,11 @@ def phase_meshclean():
 # the card and on the CPU; the image size is not cut.
 BUNDLER_VIEWS = 10
 # Views of phase 19's featurerecon, the first of phase 9's scene. Cut
-# from 40 for time (60.1 s at 40 views on an H100, 17.2 s at 20: PERF.md);
-# the image size is not cut. Its floor of triangulated points (6,206 were
-# measured at 20 views).
-FEATURERECON_VIEWS = 20
+# from 40 for time (on an H100 60.1 s at 40 views, 17.2-21.6 s at 20:
+# PERF.md; the pairs go with the square of the views); the image size is
+# not cut. Its floor of triangulated points (6,206 were measured at 20
+# views).
+FEATURERECON_VIEWS = 10
 FEATURERECON_MIN_POINTS = 1000
 # A thumbnail pixel may round the other way, card against CPU, where its
 # value lies within TIE of k + 0.5 (cuBLAS and the CPU sum the resize in
@@ -2461,6 +2499,403 @@ def phase_tracing():
     return found
 
 
+# ---------------------------------------------------------------------------
+# Slice 8: several devices (a mesh of shards on the one card, a process
+# group of processes sharing it) and the last library modules.
+# ---------------------------------------------------------------------------
+
+# Phase 25: bundle adjustment at the size of the Dubrovnik problem of
+# "Bundle Adjustment in the Large" (Agarwal et al., 2010: 356 cameras,
+# 226,730 points, 1,255,268 observations), built by synthetic_ba_problem
+# with six observations a point (1,360,380). The LM loop and each PCG
+# solve are capped for time (BAL_LM_STEPS, BAL_CG_ITERS); sizes are not
+# cut. Run with no mesh and over BAL_SHARDS shards on cuda:0, in float32
+# and float64.
+BAL_CAMS, BAL_POINTS, BAL_OBS_PER_POINT = 356, 226_730, 6
+BAL_LM_STEPS, BAL_CG_ITERS = 5, 64
+BAL_SHARDS = (1, 2, 4)
+# Limits of the sharded runs against no mesh: tests/test_torch_parallel.py's
+# (final MSE relative, parameters absolute). float64: its limits for the
+# port's shards against the port's own unsharded loop; float32: those of
+# the port against mve_tpu, BA_TOLS's parameters (the sums add in another
+# order; an end camera's k1 is weakly held).
+SHARD_TOLS = {
+    np.float32: dict(mse=1e-4, **{k: v for k, v in BA_TOLS.items() if k != "mse"}),
+    np.float64: dict(mse=1e-10, focal=1e-8, distortion=1e-8, translation=1e-8, rotation=1e-8,
+                     points=1e-8)}
+
+
+def same_ba(a, b):
+    """Whether two optimize_arrays results have the same bits and status."""
+    keys = ("initial_mse", "final_mse", "num_lm_iterations", "num_lm_successful_iterations",
+            "num_cg_iterations")
+    return all(np.array_equal(x, y) for x, y in zip(a[:4], b[:4])) and \
+        all(getattr(a[4], k) == getattr(b[4], k) for k in keys)
+
+
+@contextlib.contextmanager
+def cg_reductions(mesh):
+    """[reductions, Schur products] made inside PCG while the block runs:
+    each product of the reduced camera system reads the mesh's reduction
+    count before and after (ba_core._pcg's S_mul, wrapped)."""
+    tally = [0, 0]
+    real = ba_core._pcg
+
+    def pcg(S_mul, precond, rhs, max_it):
+        def counted(d):
+            r0 = mesh.reductions
+            out = S_mul(d)
+            tally[0] += mesh.reductions - r0
+            tally[1] += 1
+            return out
+        return real(counted, precond, rhs, max_it)
+
+    ba_core._pcg = pcg
+    try:
+        yield tally
+    finally:
+        ba_core._pcg = real
+
+
+def bal_options(dtype, mesh=None):
+    return BAOptions(dtype=dtype, mesh=mesh, lm_max_iterations=BAL_LM_STEPS,
+                     cg_max_iterations=BAL_CG_ITERS)
+
+
+def phase_sharded_ba():
+    """optimize_arrays on the Dubrovnik-sized problem with no mesh and over
+    meshes of 1, 2 and 4 shards on cuda:0, float32 and float64: wall
+    time, LM steps, CG iterations, reductions per CG iteration (each
+    Schur product reduces E^T y and E z) and peak memory per run. The
+    one-shard run must be bit-identical to no mesh, the others within
+    SHARD_TOLS of it with as many LM steps, and every run must lower the
+    MSE."""
+    arrays = synthetic_ba_problem(BAL_CAMS, BAL_POINTS, BAL_OBS_PER_POINT, seed=0)
+    print(f"  {BAL_CAMS} cameras, {BAL_POINTS} points, {len(arrays[4])} observations (padded "
+          f"to {ba_lm._bucket(len(arrays[4]), 512)}); caps: {BAL_LM_STEPS} LM steps, "
+          f"{BAL_CG_ITERS} CG iterations a solve", flush=True)
+    runs = {}
+    for dtype in (np.float32, np.float64):
+        # A first run in each precision pays one-time costs (allocations,
+        # the first use of a kernel); it is not reported.
+        optimize_arrays(*arrays, bal_options(dtype), device="cuda")
+        for shards in (None,) + BAL_SHARDS:
+            mesh = None if shards is None else get_mesh(devices=["cuda:0"] * shards)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with cg_reductions(mesh or types.SimpleNamespace(reductions=0)) as tally:
+                t0 = time.perf_counter()
+                res = optimize_arrays(*arrays, bal_options(dtype, mesh), device="cuda")
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            st = res[4]
+            per_cg = f"{tally[0] / tally[1]:.2f}" if mesh is not None and tally[1] else "-"
+            print(f"  {np.dtype(dtype).name}, {'no mesh' if mesh is None else f'{shards} shard(s)'}: "
+                  f"{wall:.3f} s, MSE {st.initial_mse:.6e} -> {st.final_mse:.6e}, "
+                  f"{st.num_lm_iterations} LM steps, {st.num_cg_iterations} CG iterations "
+                  f"({tally[1]} Schur products run), reductions {mesh.reductions if mesh else 0} "
+                  f"in all, {per_cg} per CG iteration, max_memory_allocated "
+                  f"{torch.cuda.max_memory_allocated()} bytes", flush=True)
+            if not st.final_mse < st.initial_mse:
+                raise AssertionError("sharded BA: the MSE did not fall")
+            runs[(dtype, shards)] = dict(res=res, wall=wall, peak=torch.cuda.max_memory_allocated(),
+                                         per_cg=per_cg)
+        base = runs[(dtype, None)]["res"]
+        one = same_ba(runs[(dtype, 1)]["res"], base)
+        print(f"  {np.dtype(dtype).name}: one shard bit-identical to no mesh: {one}", flush=True)
+        if not one:
+            raise AssertionError("a one-shard mesh differs from no mesh")
+        for shards in BAL_SHARDS[1:]:
+            res = runs[(dtype, shards)]["res"]
+            gaps = ba_gaps(res, base)
+            tols = SHARD_TOLS[dtype]
+            print(f"  {np.dtype(dtype).name}, {shards} shards against no mesh, apart at most "
+                  f"(limit): " + ", ".join(f"{k} {v:.3e} ({tols[k]:g})" for k, v in gaps.items()),
+                  flush=True)
+            if any(v > tols[k] for k, v in gaps.items()) \
+                    or res[4].num_lm_iterations != base[4].num_lm_iterations:
+                raise AssertionError(f"{shards} shards disagree with no mesh")
+    return dict(arrays=arrays, runs=runs)
+
+
+def fssr_sphere():
+    """tests/test_parallel.py's FSSR input: 700 samples on a unit sphere
+    and 900 query points (seed 11)."""
+    rng = np.random.RandomState(11)
+    n = 700
+    phi = rng.uniform(0, 2 * np.pi, n)
+    costh = rng.uniform(-1, 1, n)
+    sinth = np.sqrt(1 - costh ** 2)
+    normal = np.stack([sinth * np.cos(phi), sinth * np.sin(phi), costh], 1).astype(np.float32)
+    samples = SampleList(pos=normal.copy(), normal=normal,
+                         color=rng.uniform(0, 1, (n, 3)).astype(np.float32),
+                         scale=rng.uniform(0.05, 0.3, n).astype(np.float32),
+                         confidence=np.ones(n, np.float32))
+    return samples, rng.uniform(-1.2, 1.2, (900, 3))
+
+
+# Phase 26's process groups: (backend, processes). NCCL refuses two ranks on
+# one device, so two processes share the card over gloo; rank 0 then joins
+# an NCCL group of its own.
+GROUPS = (("gloo", 2), ("nccl", 1))
+
+
+def process_group_worker(rank, base):
+    """One process of phase 26 (spawned): for each of GROUPS it belongs to,
+    join the group, run phase 25's float32 BA twice and the sphere's FSSR
+    evaluation over global_mesh() on the card, write the results to
+    base/<backend>-<processes>-<rank>.npz and leave the group. A group of one process
+    is joined directly: initialize() is a no-op for one process."""
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    arrays = tuple(np.load(Path(base) / "bal.npz")[f"arr_{i}"] for i in range(7))
+    samples, q = fssr_sphere()
+    for backend, world in GROUPS:
+        if rank >= world:
+            break
+        init_method = f"file://{base}/{backend}-{world}-init"
+        if world == 1:
+            torch.distributed.init_process_group(backend, init_method=init_method,
+                                                 world_size=1, rank=0)
+        else:
+            multihost.initialize(init_method, world, rank, device="cuda", backend=backend)
+        try:
+            mesh = multihost.global_mesh(device="cuda")
+            runs = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                runs.append(optimize_arrays(*arrays, bal_options(np.float32, mesh),
+                                            device="cuda"))
+                torch.cuda.synchronize()
+                runs[-1] += (time.perf_counter() - t0,)
+            res, again = runs
+            ba_reductions = mesh.reductions // 2
+            t0 = time.perf_counter()
+            sums = fssr_block_eval.evaluate_positions_blocked(samples, q, mesh=mesh)
+            fssr_s = time.perf_counter() - t0
+            st = res[4]
+            np.savez(Path(base) / f"{backend}-{world}-{rank}.npz", *res[:4], sums=sums,
+                     status=[st.initial_mse, st.final_mse, st.num_lm_iterations,
+                             st.num_lm_successful_iterations, st.num_cg_iterations],
+                     info=[res[5], again[5], fssr_s, ba_reductions, mesh.size, mesh.rank,
+                           str(torch.distributed.get_backend()) == backend
+                           and same_ba(res, again)])
+        finally:
+            torch.distributed.destroy_process_group()
+
+
+def run_processes(base, timeout=600):
+    """Start process_group_worker in as many processes as the largest
+    group and wait; a process that fails ends the others and fails the
+    phase. Returns [(backend, [(BA result, FSSR sums, info) per rank])]
+    in the order of GROUPS."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(process_group_worker, args=(str(base),),
+                             nprocs=max(w for _, w in GROUPS), start_method="spawn", join=False)
+    deadline = time.perf_counter() + timeout
+    while not ctx.join(timeout=5):
+        if time.perf_counter() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise AssertionError(f"the process-group workers did not finish in {timeout} s")
+    out = []
+    for backend, world in GROUPS:
+        out.append((backend, []))
+        for rank in range(world):
+            z = np.load(base / f"{backend}-{world}-{rank}.npz")
+            st = z["status"]
+            out[-1][1].append((tuple(z[f"arr_{i}"] for i in range(4)) + (types.SimpleNamespace(
+                initial_mse=st[0], final_mse=st[1], num_lm_iterations=int(st[2]),
+                num_lm_successful_iterations=int(st[3]), num_cg_iterations=int(st[4])),),
+                z["sums"], z["info"]))
+    return out
+
+
+def phase_process_group(sharded):
+    """Two processes on the one card in a gloo group (NCCL refuses two
+    ranks on one device), through multihost.initialize and global_mesh:
+    phase 25's float32 BA bit-identical to its in-process two-shard run,
+    and the sphere's FSSR evaluation bit-identical to mesh=None on the
+    card; then the first process in an NCCL group of one, its BA
+    bit-identical to phase 25's float32 run with no mesh."""
+    base = WORK / "process_group"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    np.savez(base / "bal.npz", *sharded["arrays"])
+    samples, q = fssr_sphere()
+    want_sums = fssr_block_eval.evaluate_positions_blocked(samples, q, device="cuda")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    groups = run_processes(base)
+    wall = time.perf_counter() - t0
+    # Phase 25's run with as many shards as the group has processes.
+    refs = {2: ((np.float32, 2), "two-shard"), 1: ((np.float32, None), "unsharded")}
+    for backend, ranks in groups:
+        world = len(ranks)
+        want = sharded["runs"][refs[world][0]]["res"]
+        for rank, (res, sums, info) in enumerate(ranks):
+            ba_same = same_ba(res, want)
+            fssr_same = np.array_equal(sums.view(np.uint64), want_sums.view(np.uint64))
+            print(f"  {backend}, rank {rank} of {world}: BA {float(info[0]):.3f} s, again "
+                  f"{float(info[1]):.3f} s ({res[4].num_lm_iterations} LM steps, "
+                  f"{res[4].num_cg_iterations} CG iterations, {int(info[3])} reductions), "
+                  f"bit-identical to phase 25's {refs[world][1]} float32 run: {ba_same}; "
+                  f"FSSR {float(info[2]):.3f} s, sums bit-identical to mesh=None: {fssr_same}; "
+                  f"group backend {backend} and the two runs bit-identical: {bool(info[6])}",
+                  flush=True)
+            if not (ba_same and fssr_same and bool(info[6])):
+                raise AssertionError(f"{backend} process group: rank {rank} disagrees")
+    print(f"  {max(w for _, w in GROUPS)} processes in {wall:.3f} s with their start-up",
+          flush=True)
+    shutil.rmtree(base, ignore_errors=True)
+    return wall
+
+
+def phase_sfm_with_mesh(full_sfm):
+    """sfmrecon's incremental SfM on phase 9's scene from phase 5's
+    prebundle (sfm_reconstruct's intrinsics, options and initial pair)
+    with IncrementalOptions.ba_mesh over two shards on cuda:0, so that
+    every BA of the run is sharded. Held to phase 9's limits: 40/40
+    cameras, tracks within 1% of phase 9's, centres within 2% of the
+    true cameras; BA totals beside phase 9's. The undistortion and the
+    writes that follow SfM in the app are phase 9's and not repeated."""
+    scene = WORK / "main"
+    vps, matching = load_scene_result(str(scene))
+    Intrinsics(IntrinsicsOptions()).compute(Scene(str(scene)), vps)
+    opts = SfmOptions(initial_pair=MAIN_INITIAL_PAIR)
+    mesh = opts.incremental_opts.ba_mesh = get_mesh(devices=["cuda:0"] * 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    inc = run_incremental_sfm(vps, matching, opts, "cuda")
+    bundle = inc.create_bundle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    t9 = full_sfm["timings"]
+    ok, centres = bundle_centres(bundle)
+    err = aligned_error(centres, true_centres(MAIN_VIEWS)[ok])
+    n_tracks = bundle.get_num_features()
+    bt, bt9 = inc.ba_totals, t9["ba_totals"]
+    print(f"  mesh: {mesh.size} shards on {[str(d) for d in mesh.devices]}, {mesh.reductions} "
+          f"reductions; incremental SfM {wall:.3f} s (phase 9: {t9['incremental_ms']} ms)",
+          flush=True)
+    print(f"  {int(ok.sum())}/{MAIN_VIEWS} cameras, n_tracks {n_tracks} (phase 9: "
+          f"{t9['n_tracks']}), centres {err:.5f} of the true extent (<={CENTRE_TOL}; phase 9: "
+          f"{full_sfm['err']:.5f})", flush=True)
+    print(f"  BA totals: {bt['n_ba']} BAs, {bt['lm_iters']} LM steps, {bt['cg_iters']} CG "
+          f"iterations, {bt['ms']} ms; phase 9: {bt9['n_ba']}, {bt9['lm_iters']}, "
+          f"{bt9['cg_iters']}, {bt9['ms']} ms", flush=True)
+    if mesh.reductions == 0:
+        raise AssertionError("incremental SfM did not shard its BA")
+    if not ok.all() or len(ok) != MAIN_VIEWS or err > CENTRE_TOL \
+            or abs(n_tracks - t9["n_tracks"]) > TRACK_TOL * t9["n_tracks"]:
+        raise AssertionError("incremental SfM with a BA mesh misses phase 9's limits")
+    return dict(wall=wall, ba_totals=dict(bt))
+
+
+FSSR_SHARDS = 4
+
+
+def phase_sharded_fssr(recorded):
+    """Phase 13's default card evaluation (its samples and corners) again,
+    over FSSR_SHARDS shards on cuda:0 and with no mesh: both sums
+    bit-identical to phase 13's."""
+    (samples, positions), kwargs, want = recorded
+    out = {}
+    for label, kw in (("no mesh", dict(device="cuda")),
+                      (f"{FSSR_SHARDS} shards", dict(mesh=get_mesh(devices=["cuda:0"] *
+                                                                    FSSR_SHARDS)))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fssr_block_eval.evaluate_positions_blocked(samples, positions, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = fssr_block_eval.STATS
+        same = np.array_equal(got.view(np.uint64), want.view(np.uint64))
+        print(f"  {label}: {wall:.3f} s (block expansion {st['expand_ms']:.1f} ms, dispatch "
+              f"{st['dispatch_ms']:.1f} ms, sync {st['sync_ms']:.1f} ms), SB buckets "
+              f"{st['buckets']}, {len(samples)} samples, {len(positions)} corners; sums "
+              f"bit-identical to phase 13's card run: {same}", flush=True)
+        if not same:
+            raise AssertionError(f"FSSR evaluation, {label}: sums differ from phase 13's")
+        out[label] = wall
+    return out
+
+
+def library_close(got, want, per_channel=False):
+    """Largest |got - want| over max(1, |want|), or with per_channel over
+    max(1, the largest |want| of its last-axis channel)."""
+    got, want = got.double().cpu().numpy(), want.double().numpy()
+    mag = np.abs(want).reshape(-1, want.shape[-1]).max(axis=0) if per_channel else np.abs(want)
+    return float((np.abs(got - want) / np.maximum(1.0, mag)).max())
+
+
+LIBRARY_TOL = 1e-6
+
+
+def phase_library():
+    """The torch functions of core/image_color, math/geometry and
+    math/intersect on the card against the same calls on the CPU, float32,
+    on the users' own data: phase 9's view 0 (1600x1200) for the colour
+    conversions; phase 15's cleaned surface for the triangles; rays from
+    view 0's camera centre to every triangle's centroid and to random
+    points; the surface's bounding box. Within LIBRARY_TOL (relative
+    where a value is above 1; colours of each channel's largest) and hit
+    masks equal."""
+    scene = WORK / "main"
+    img = Scene(str(scene)).get_view_by_id(0).get_image("original")
+    rgb = torch.from_numpy(np.asarray(img, np.float32) / 255.0)
+    mesh = load_mesh(str(scene / "clean.ply"))
+    tri = torch.from_numpy(mesh.vertices[mesh.faces].astype(np.float32)).permute(1, 0, 2)
+    cam = bundle_centres(load_mve_bundle(str(scene / "synth_0.out")))[1][0].astype(np.float32)
+    rng = np.random.RandomState(29)
+    ends = np.concatenate([tri.mean(0).numpy(), rng.randn(len(mesh.faces), 3).astype(np.float32)])
+    origin = torch.from_numpy(np.broadcast_to(cam, ends.shape).copy())
+    direction = torch.from_numpy(ends) - origin
+    lo = torch.from_numpy(mesh.vertices.min(0))
+    hi = torch.from_numpy(mesh.vertices.max(0))
+    tri2 = torch.cat([tri, tri], dim=1)
+    xyz = image_color.rgb_to_xyz(rgb)
+    calls = [(f"image_color.{name}", getattr(image_color, name), (x,), True)
+             for name, x in (("srgb_to_linear", rgb), ("linear_to_srgb", rgb),
+                             ("rgb_to_xyz", rgb), ("xyz_to_rgb", xyz), ("xyz_to_lab", xyz),
+                             ("lab_to_xyz", image_color.xyz_to_lab(xyz)),
+                             ("rgb_to_ycbcr", rgb),
+                             ("ycbcr_to_rgb", image_color.rgb_to_ycbcr(rgb)))]
+    calls += [("geometry.triangle_normal", geometry.triangle_normal, tuple(tri), False),
+              ("geometry.triangle_area", geometry.triangle_area, tuple(tri), False),
+              ("geometry.triangle_circumradius", geometry.triangle_circumradius, tuple(tri),
+               False),
+              ("geometry.normalize", geometry.normalize, (direction,), False),
+              ("intersect.ray_box", intersect.ray_box, (origin, direction, lo, hi), False),
+              ("intersect.ray_triangle", intersect.ray_triangle, (origin, direction, *tri2),
+               False),
+              ("intersect.point_in_box", intersect.point_in_box,
+               (torch.from_numpy(ends), lo, hi), False)]
+    worst = 0.0
+    for name, fn, args, per_channel in calls:
+        want = fn(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn(*(a.to("cuda:0") for a in args))
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        want = want if isinstance(want, tuple) else (want,)
+        got = got if isinstance(got, tuple) else (got,)
+        masks = [bool(torch.equal(g.cpu(), w)) for g, w in zip(got, want) if w.dtype == torch.bool]
+        gaps = [library_close(g, w, per_channel) for g, w in zip(got, want)
+                if w.dtype != torch.bool]
+        hits = [int(w.sum()) for w in want if w.dtype == torch.bool]
+        print(f"  {name}: {tuple(got[0].shape)}, card {ms:.3f} ms (with its copies), apart at most "
+              f"{max(gaps, default=0.0):.3e}; masks equal {masks}, hits {hits}", flush=True)
+        if not all(masks) or max(gaps, default=0.0) > LIBRARY_TOL \
+                or not all(torch.isfinite(g.float()).all() for g in got):
+            raise AssertionError(f"{name}: card and CPU disagree")
+        worst = max([worst] + gaps)
+    return worst
+
+
 def main() -> int:
     phase("1. environment")
     if not torch.cuda.is_available():
@@ -2525,7 +2960,7 @@ def main() -> int:
 
     phase(f"9. whole app, {MAIN_VIEWS} views of {MAIN_WIDTH}x{MAIN_HEIGHT} from phase 5's "
           f"prebundle, initial pair {MAIN_INITIAL_PAIR}")
-    phase_full_sfm()
+    full_sfm = phase_full_sfm()
 
     phase("10. dmrecon with each solver, card against CPU, on phase 7's scene")
     phase_dmrecon_card_vs_cpu()
@@ -2587,6 +3022,26 @@ def main() -> int:
     phase(f"24. fssrecon with MVE_TPU_FSSR_PAIRWISE=1 on phase 13's point set: card twice, CPU, "
           f"and the dense path")
     phase_pairwise_fssr(*fssr_sub["default_card"])
+
+    phase(f"25. bundle adjustment at the Dubrovnik problem's size ({BAL_CAMS} cameras, "
+          f"{BAL_POINTS} points, {BAL_OBS_PER_POINT} observations a point): no mesh and "
+          f"{', '.join(map(str, BAL_SHARDS))} shards on cuda:0, float32 and float64")
+    sharded = phase_sharded_ba()
+
+    phase("26. two processes on the card in a gloo group (phase 25's float32 BA, an FSSR "
+          "evaluation), then one process in an NCCL group")
+    phase_process_group(sharded)
+    del sharded
+
+    phase(f"27. phase 13's FSSR evaluation over {FSSR_SHARDS} shards on cuda:0")
+    phase_sharded_fssr(fssr_sub.pop("default_eval"))
+
+    phase("28. image_color, geometry and intersect, card against CPU")
+    phase_library()
+
+    phase(f"29. incremental SfM with its BA over two shards on cuda:0, {MAIN_VIEWS} views from "
+          f"phase 5's prebundle")
+    phase_sfm_with_mesh(full_sfm)
     shutil.rmtree(WORK / "main", ignore_errors=True)
 
     replaces = "mve_tpu/ops/pallas_matching.py:27"

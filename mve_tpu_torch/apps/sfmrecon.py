@@ -15,11 +15,11 @@ of its share of the views and writes features.part{k}.npz, reads the
 others', matches its share of the pairs with the batched matcher and
 writes matches.part{k}.npz; process 0 merges them into prebundle.sfm,
 removes the part files and goes on to SfM, the others stop there.
-Several processes may share one card.
+Several processes may share one card. On a CUDA device with several
+local cards, every BA shards its observations over all of them
+(parallel/distributed_ba.py), as mve_tpu does over its local devices.
 
     python -m mve_tpu_torch.apps.sfmrecon [--device cpu] <scene>
-
-Not ported yet: BA over several devices (ROADMAP.md item 14).
 """
 
 from __future__ import annotations
@@ -31,11 +31,13 @@ import sys
 import time
 
 import numpy as np
+import torch
 
 from .. import resolve_device
 from ..core import Scene
 from ..core import image_tools
 from ..utils.timer import WallTimer
+from ..parallel.mesh import get_mesh
 from ..parallel.multihost import my_shard, num_processes_from_env, process_id_from_env
 from ..sfm.bundler import (
     BatchedMatching, BundlerMatchingOptions, Features, FeaturesOptions,
@@ -330,6 +332,12 @@ def sfm_reconstruct(scene_path: str, *, max_pixels: int = 6_000_000,
     opts.incremental_opts.ba_fixed_intrinsics = fixed_intrinsics
     opts.incremental_opts.verbose_output = verbose
     opts.incremental_opts.verbose_ba = verbose_ba
+    # Several local cards: shard BA's observations over all of them. One
+    # card gets no mesh (a one-shard mesh computes the same bits).
+    if dev.type == "cuda" and torch.cuda.device_count() > 1:
+        opts.incremental_opts.ba_mesh = get_mesh()
+        if verbose:
+            print(f"BA: sharding observations over {torch.cuda.device_count()} devices.")
     incremental = run_incremental_sfm(viewports, pairwise_matching, opts, dev)
     if verbose:
         print(f"SfM reconstruction took {timer.get_elapsed()}ms.")

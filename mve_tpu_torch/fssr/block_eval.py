@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..parallel.mesh import Mesh
 
 _VB = 64            # voxels per eval-block (dense padding unit)
 _SB_MIN = 256       # smallest candidate-sample bucket
@@ -291,17 +292,33 @@ def _to_device(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
     return t
 
 
+def _evaluate(mode, args, thresh, log_lo, inv_width):
+    if mode == "bisect":
+        return _eval_dense(*args)
+    if mode == "thresh":
+        return _eval_dense_thresh(*args, thresh)
+    return _hist_dense(*args, log_lo, inv_width)
+
+
 def run_chunk(part: BlockPartition, samples, out: np.ndarray,
               mode: str = "bisect", thresh: np.ndarray | None = None,
               hist_log_lo: float = 0.0, hist_inv_width: float = 1.0,
-              device="cuda"):
+              device="cuda", mesh=None):
     """Evaluate one sample chunk against the partitioned positions and
     ADD the per-position results into `out`.
 
     mode: 'bisect' (self-contained scale filter; out is (V, 10)),
     'thresh' (fixed per-position thresholds; out is (V, 10)), or
-    'hist' (accumulate scale histograms; out is (V, HIST_BINS))."""
-    dev = resolve_device(device)
+    'hist' (accumulate scale histograms; out is (V, HIST_BINS)).
+
+    mesh: a mesh (mve_tpu_torch.parallel) whose devices take the place of
+    `device` (default: one shard on `device`). Eval-rows are independent,
+    so each dispatch batch is padded to a multiple of mesh.size and split
+    over the shards, each evaluates its rows on its device, and the rows
+    are gathered in order before the host sums (mve_tpu's sharding, with
+    no collective but the gather): the accumulators are those of one
+    shard on the same device type, bit for bit."""
+    mesh = mesh or Mesh([resolve_device(device)])
     if mode not in ("bisect", "thresh", "hist"):
         raise ValueError(f"unknown mode {mode!r}")
     pos = samples.pos.astype(np.float64)
@@ -329,10 +346,15 @@ def run_chunk(part: BlockPartition, samples, out: np.ndarray,
     # groups).
     sb = np.where(eb_scount > 0, sb, -1)
     t1 = time.perf_counter()
-    d_table = _to_device(_sample_table(samples), dev)
+    table = _sample_table(samples)
+    devices = mesh.local_devices()
+    # The sample table on each device (shards may share one).
+    d_tables = {d: _to_device(table, d) for d in set(devices)}
     if mode == "hist":
         log_lo = float(np.float32(hist_log_lo))
         inv_width = float(np.float32(hist_inv_width))
+    else:
+        log_lo = inv_width = None
 
     pending = []  # (device result, vidx, vmask)
     for SB in np.unique(sb):
@@ -341,38 +363,46 @@ def run_chunk(part: BlockPartition, samples, out: np.ndarray,
         rows = np.nonzero(sb == SB)[0]
         SBi = int(SB)
         # mve_tpu's dispatch shape (B, _VB, SB) per SB bucket; a
-        # dispatch holds only its real rows.
+        # dispatch holds only its real rows, padded to a multiple of the
+        # mesh's size with rows that evaluate to zero.
         B = max(1, _ELEMS_PER_DISPATCH // (_VB * SBi))
+        m = mesh.size
+        B = (B + m - 1) // m * m
         STATS["buckets"][SBi] = STATS["buckets"].get(SBi, 0) \
             + (len(rows) + B - 1) // B
         STATS["rows"] += len(rows)
         STATS["pairs"] += len(rows) * _VB * SBi
         for c0 in range(0, len(rows), B):
             sel = rows[c0:c0 + B]
+            n = len(sel)
+            sel = np.concatenate([sel, np.full(-n % m, sel[0])])
+            real = (np.arange(len(sel)) < n)[:, None]
             vs = part.eb_vstart[sel]
             vc = part.eb_vcount[sel]
             ar = np.arange(_VB)
             vidx = part.order[np.minimum(vs[:, None] + ar[None, :],
                                          len(part.order) - 1)]
-            vmask = ar[None, :] < vc[:, None]
+            vmask = (ar[None, :] < vc[:, None]) & real
             ss = sstart[part.eb_block[sel]]
             sc = eb_scount[sel]
             ar_s = np.arange(SBi)
             sidx = ent_s[np.minimum(ss[:, None] + ar_s[None, :],
                                     max(len(ent_s) - 1, 0))]
-            smask = ar_s[None, :] < sc[:, None]
-            args = (_to_device(part.pos32[vidx], dev), _to_device(vmask, dev),
-                    d_table, _to_device(sidx.astype(np.int64), dev),
-                    _to_device(smask, dev))
-            if mode == "bisect":
-                res = _eval_dense(*args)
-            elif mode == "thresh":
-                res = _eval_dense_thresh(
-                    *args, _to_device(thresh[vidx].astype(np.float32), dev))
-            else:
-                res = _hist_dense(*args, log_lo, inv_width)
-            del args
-            pending.append((res.reshape(-1, res.shape[-1]), vidx, vmask))
+            smask = (ar_s[None, :] < sc[:, None]) & real
+            batch = [part.pos32[vidx], vmask, sidx.astype(np.int64), smask]
+            if mode == "thresh":
+                batch.append(thresh[vidx].astype(np.float32))
+            k = len(sel) // m
+            shards = [[a[i * k:(i + 1) * k] for a in batch] for i in mesh.local_shards]
+            res = []
+            for d, (pos32, vm, si, sm, *th) in zip(devices, shards):
+                args = (_to_device(pos32, d), _to_device(vm, d), d_tables[d],
+                        _to_device(si, d), _to_device(sm, d))
+                res.append(_evaluate(mode, args, _to_device(th[0], d) if th else None,
+                                     log_lo, inv_width))
+                del args
+            res = mesh.gather_rows(res)
+            pending.append((res[:n].reshape(-1, res.shape[-1]), vidx[:n], vmask[:n]))
     t2 = time.perf_counter()
     # One read back at the end: the device computes while the host
     # assembles the tables of later dispatches.
@@ -393,9 +423,11 @@ def run_chunk(part: BlockPartition, samples, out: np.ndarray,
 
 def evaluate_positions_blocked(samples, positions: np.ndarray,
                                block_cells: float = 4.0,
-                               device="cuda") -> np.ndarray:
+                               device="cuda", mesh=None) -> np.ndarray:
     """Compute the per-voxel FSSR accumulator sums (V, 10) for arbitrary
-    positions with the dense block program.
+    positions with the dense block program on `device`, or with each
+    dispatch batch split over the shards of `mesh` (run_chunk); every
+    process of a process-group mesh gets all the sums.
 
     Scale-DIVERSE sample sets (max/min scale > 32) evaluate per scale
     octave, each octave against a partition sized to ITS influence
@@ -404,7 +436,7 @@ def evaluate_positions_blocked(samples, positions: np.ndarray,
     octaves, so the diverse path uses the streaming two-pass form
     (per-voxel log-scale histograms -> fixed thresholds -> additive
     evaluation), exact to one histogram bin like fssr/streaming.py."""
-    dev = resolve_device(device)
+    mesh = mesh or Mesh([resolve_device(device)])
     positions = np.asarray(positions, np.float64)
     V = len(positions)
     sums = np.zeros((V, 10), np.float64)
@@ -421,7 +453,7 @@ def evaluate_positions_blocked(samples, positions: np.ndarray,
         reset_stats("bisect")
         h = float(np.median(scale))
         part = partition_positions(positions, block_cells * max(h, 1e-12))
-        run_chunk(part, samples, sums, mode="bisect", device=dev)
+        run_chunk(part, samples, sums, mode="bisect", mesh=mesh)
         return sums
 
     reset_stats("octave-hist")
@@ -443,7 +475,7 @@ def evaluate_positions_blocked(samples, positions: np.ndarray,
     hists = np.zeros((V, HIST_BINS), np.float64)
     for sub, part in groups:
         run_chunk(part, sub, hists, mode="hist", hist_log_lo=log_lo,
-                  hist_inv_width=inv_width, device=dev)
+                  hist_inv_width=inv_width, mesh=mesh)
     counts = hists.sum(axis=1)
     k = (counts // 10).astype(np.int64)
     cum = np.cumsum(hists, axis=1)
@@ -453,5 +485,5 @@ def evaluate_positions_blocked(samples, positions: np.ndarray,
 
     # Pass 2: additive evaluation against the fixed thresholds.
     for sub, part in groups:
-        run_chunk(part, sub, sums, mode="thresh", thresh=thresh, device=dev)
+        run_chunk(part, sub, sums, mode="thresh", thresh=thresh, mesh=mesh)
     return sums

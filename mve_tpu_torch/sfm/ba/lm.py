@@ -1,7 +1,9 @@
 """Levenberg-Marquardt loop (reference: bundle_adjustment.cc:26-201;
 port of mve_tpu/sfm/ba/lm.py).
 
-The trust-region loop is core.lm_optimize: trust region 1000 at the
+The trust-region loop is core.lm_optimize_sharded, run by
+parallel.distributed_ba over the BA's mesh (by default one shard on the
+caller's device, the operations of the unsharded loop): trust region 1000 at the
 start, halved on a failed step; on success TRR *= 1 / max(1/3,
 1 - (2g - 1)^3) with g = delta_mse * num_obs / predicted_decrease.
 
@@ -18,10 +20,10 @@ import dataclasses
 import time
 
 import numpy as np
-import torch
 
 from ... import resolve_device
-from . import core
+from ...parallel import distributed_ba
+from ...parallel.mesh import Mesh
 from .problem import BAProblem, BundleMode
 
 
@@ -38,6 +40,11 @@ class BAOptions:
     verbose_output: bool = False
     # float32 or float64, on whichever device the caller gives.
     dtype: object = np.float32
+    # A mesh (mve_tpu_torch.parallel): shard the observation axis over it
+    # and run the LM loop with its sums reduced over the shards
+    # (parallel/distributed_ba.py); the mesh's devices take the place of
+    # `device`. None = one shard on `device`.
+    mesh: object = None
     # Minimum padded sizes for (cameras, points, observations). An
     # incremental SfM run sets these to its tier of the final problem
     # bound; 0 = plain power-of-two bucketing per call.
@@ -76,9 +83,6 @@ def _bucket(n, minimum=64):
     return size
 
 
-_TORCH_DTYPES = {np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.float64}
-
-
 def optimize_arrays(intr_np, trans_np, rot_np, points_np,
                     obs_np, cam_idx_np, pt_idx_np,
                     opts: BAOptions, device="cuda") -> tuple:
@@ -90,7 +94,7 @@ def optimize_arrays(intr_np, trans_np, rot_np, points_np,
     shapes (float64).
     """
     t0 = time.perf_counter()
-    dev = resolve_device(device)
+    mesh = opts.mesh or Mesh([resolve_device(device)])
     dtype = np.dtype(opts.dtype)
     mode = int(opts.bundle_mode)
 
@@ -98,6 +102,7 @@ def optimize_arrays(intr_np, trans_np, rot_np, points_np,
     Cp = max(_bucket(C, 16), opts.pad_cameras)
     Pp = max(_bucket(P, 256), opts.pad_points)
     Op = max(_bucket(O, 512), opts.pad_observations)
+    Op = (Op + mesh.size - 1) // mesh.size * mesh.size  # the shards split O evenly
 
     intr = np.ascontiguousarray(_pad(intr_np, Cp), dtype)
     # Padded cameras get f=1 so the residual function stays finite.
@@ -113,18 +118,15 @@ def optimize_arrays(intr_np, trans_np, rot_np, points_np,
     cam_idx = np.pad(np.asarray(cam_idx_np, np.int64), (0, Op - O))
     pt_idx = np.pad(np.asarray(pt_idx_np, np.int64), (0, Op - O))
 
-    def t(a):
-        return torch.from_numpy(a).to(dev)
-
-    layout = core.ObservationLayout(cam_idx, pt_idx, Cp, Pp, dev, np.arange(Op) < O)
-    ii, tt, rr, pp, st = core.lm_optimize(
-        t(intr), t(trans), t(np.ascontiguousarray(rot)), t(points), t(obs),
-        t(cam_idx), t(pt_idx), t(np.arange(Op) < O),
-        torch.tensor(float(O), dtype=_TORCH_DTYPES[dtype], device=dev),
-        mode=mode, fixed_intrinsics=opts.fixed_intrinsics,
-        max_iters=opts.lm_max_iterations, cg_max_iter=opts.cg_max_iterations,
-        lm_delta_threshold=opts.lm_delta_threshold,
-        lm_mse_threshold=opts.lm_mse_threshold, layout=layout)
+    obs_valid = np.arange(Op) < O
+    kwargs = dict(mode=mode, fixed_intrinsics=opts.fixed_intrinsics,
+                  max_iters=opts.lm_max_iterations, cg_max_iter=opts.cg_max_iterations,
+                  lm_delta_threshold=opts.lm_delta_threshold,
+                  lm_mse_threshold=opts.lm_mse_threshold)
+    rot = np.ascontiguousarray(rot)
+    num_valid = np.asarray(float(O), dtype)
+    ii, tt, rr, pp, st = distributed_ba.lm_optimize_distributed(
+        mesh, intr, trans, rot, points, obs, cam_idx, pt_idx, obs_valid, num_valid, **kwargs)
     st = st.cpu().numpy().astype(np.float64)
     status = BAStatus(
         initial_mse=float(st[0]), final_mse=float(st[1]),

@@ -37,6 +37,9 @@ class IncrementalOptions:
     new_track_error_threshold: float = 0.01
     min_triangulation_angle: float = np.deg2rad(1.0)
     ba_fixed_intrinsics: bool = False
+    # A mesh (mve_tpu_torch.parallel) for observation-sharded BA
+    # (parallel/distributed_ba.lm_optimize_distributed); None = one device.
+    ba_mesh: object = None
     verbose_output: bool = False
     verbose_ba: bool = False
 
@@ -424,6 +427,7 @@ class Incremental:
         points contribute nothing."""
         opts = BAOptions(
             fixed_intrinsics=self.opts.ba_fixed_intrinsics,
+            mesh=self.opts.ba_mesh,
             verbose_output=False)
         if single_camera_ba >= 0:
             opts.bundle_mode = BundleMode.CAMERAS

@@ -81,6 +81,28 @@ def remove_inconsistent_matches(result: MatchingResult) -> None:
     result.matches_2_1 = np.where(ok21, m21, -1).astype(np.int32)
 
 
+def count_consistent_matches(result: MatchingResult) -> int:
+    m12, m21 = result.matches_1_2, result.matches_2_1
+    idx1 = np.arange(len(m12))
+    valid = m12 >= 0
+    return int(np.sum(valid & (m21[np.clip(m12, 0, max(len(m21) - 1, 0))] == idx1)))
+
+
+def combine_results(sift_result: MatchingResult, surf_result: MatchingResult,
+                    sift_offset_2: int, surf_offset_1: int, surf_offset_2: int) -> MatchingResult:
+    """Concatenate SIFT and SURF matching results into one index space
+    (matching.cc combine_results; SURF indices are shifted past SIFT)."""
+    m12 = np.concatenate([
+        np.where(sift_result.matches_1_2 >= 0, sift_result.matches_1_2, -1),
+        np.where(surf_result.matches_1_2 >= 0, surf_result.matches_1_2 + sift_offset_2, -1),
+    ]).astype(np.int32)
+    m21 = np.concatenate([
+        np.where(sift_result.matches_2_1 >= 0, sift_result.matches_2_1, -1),
+        np.where(surf_result.matches_2_1 >= 0, surf_result.matches_2_1 + surf_offset_1, -1),
+    ]).astype(np.int32)
+    return MatchingResult(m12, m21)
+
+
 def match_pair(set1: np.ndarray, set2: np.ndarray,
                opts: MatchingOptions = MatchingOptions(),
                device="cuda") -> np.ndarray:

@@ -80,7 +80,7 @@ def test_solvers(problem, trr):
 
     a = jcore.solve_cameras_only(j["Jc"], jnp.asarray(ci), j["B"], j["v"],
                                  jnp.asarray(trr, jnp.float32))
-    b = tcore.solve_cameras_only(_T(j["Jc"]), _T(ci), _T(j["B"]), _T(j["v"]), torch.tensor(trr))
+    b = tcore.solve_cameras_only(_T(j["B"]), _T(j["v"]), torch.tensor(trr))
     for x, y in zip(a[:2], b[:2]):
         _close(y.numpy(), x, 1e-3)
     assert abs(int(b[2]) - int(a[2])) <= 0.05 * int(a[2])
