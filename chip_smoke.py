@@ -165,7 +165,16 @@ Phases, each printed as it runs; any failure raises and ends the run:
  29. sfmrecon's incremental SfM from phase 5's prebundle with its BA
      mesh over two shards on cuda:0 (every BA sharded): 40/40 cameras,
      tracks within 1% of phase 9's, centres within 2%, BA totals beside
-     phase 9's.
+     phase 9's;
+ 30. the reference's step-by-step LM and fixed-margin rectification:
+     (a) phase 8's problem through BundleAdjustment with verbose_output,
+     float32 and float64: one printed line per LM step, at least the
+     default run's steps + 3 with lm_min_iterations set so, and the
+     float64 verbose run's final MSE within VERBOSE_MSE_TOL of the run
+     without verbose_output; (b) the sweep solver on the legacy grid
+     (rectify_pair(margin_yx=rect_margins(H, W)), solve_batch_sweep(
+     rect_hw=None)) on phase 10's scene, card twice and CPU with phase
+     10's limits; wall time and peak memory.
 Each phase's header says how far into the script it starts.
 It prints one JSON line describing every kernel, and as its last line
 {"ok": true, "device": {...}}. It exits non-zero without a result when
@@ -174,6 +183,8 @@ removed when the phases that read them are done.
 """
 
 import contextlib
+import importlib.util
+import io
 import json
 import math
 import os
@@ -217,7 +228,8 @@ from mve_tpu_torch.parallel import get_mesh, multihost
 from mve_tpu_torch.render import rasterizer
 from mve_tpu_torch.sfm import matching as sfm_matching
 from mve_tpu_torch.sfm import sift
-from mve_tpu_torch.sfm.ba import BAOptions, optimize_arrays
+from mve_tpu_torch.sfm.ba import BAOptions, BundleAdjustment, optimize_arrays
+from mve_tpu_torch.sfm.ba.problem import BACamera, BAObservation, BAPoint, BAProblem
 from mve_tpu_torch.sfm.ba import core as ba_core, lm as ba_lm
 from mve_tpu_torch.sfm.bundler import Intrinsics, IntrinsicsOptions, matching_batched
 from mve_tpu_torch.sfm.bundler import init_pair as init_pair_mod
@@ -1125,7 +1137,8 @@ def phase_dmrecon_card_vs_cpu():
           flush=True)
     if not ok:
         raise AssertionError("torch.argmax on the card does not return the first of tied maxima")
-    shutil.rmtree(base, ignore_errors=True)
+    for scene in base.glob("dm_*"):
+        shutil.rmtree(scene, ignore_errors=True)  # sfm_cuda stays for phase 30
 
 
 def scene_planes(scene):
@@ -2896,6 +2909,116 @@ def phase_library():
     return worst
 
 
+# Phase 30's limit: the float64 verbose BA's final MSE against the run
+# without verbose_output, relative. Both take the same steps in float64
+# on the CPU (tests/test_torch_ba.py); the trust region's host float64
+# arithmetic and the tensor arithmetic of the other loop round apart.
+VERBOSE_MSE_TOL = 1e-10
+
+
+def ba_problem(arrays):
+    """A BAProblem holding synthetic_ba_problem's arrays."""
+    intr, trans, rot, pts, obs, cam_idx, pt_idx = arrays
+    cameras = [BACamera(focal_length=float(i[0]), distortion=i[1:3].copy(),
+                        translation=t.copy(), rotation=r.copy())
+               for i, t, r in zip(intr, trans, rot)]
+    observations = [BAObservation(o.copy(), int(c), int(p)) for o, c, p in zip(obs, cam_idx, pt_idx)]
+    return BAProblem(cameras, [BAPoint(pos=p.copy()) for p in pts], observations)
+
+
+def card_ba(arrays, **options):
+    """(printed lines, status, wall ms) of BundleAdjustment(BAOptions(
+    **options)).optimize on the card."""
+    problem = ba_problem(arrays)
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        status = BundleAdjustment(BAOptions(**options), device="cuda").optimize(problem)
+    torch.cuda.synchronize()
+    return out.getvalue().splitlines(), status, 1e3 * (time.perf_counter() - t0)
+
+
+def phase_verbose_ba():
+    """Phase 8's problem through BundleAdjustment with verbose_output (the
+    host-driven loop, mve_tpu's verbose path), float32 and float64."""
+    arrays = synthetic_ba_problem(64, 10_240, 4, seed=0)
+    for dtype in (np.float32, np.float64):
+        name = np.dtype(dtype).name
+        _, quiet, quiet_ms = card_ba(arrays, dtype=dtype)
+        lines, st, ms = card_ba(arrays, dtype=dtype, verbose_output=True)
+        need = st.num_lm_iterations + 3
+        lines_min, st_min, ms_min = card_ba(arrays, dtype=dtype, verbose_output=True,
+                                            lm_min_iterations=need)
+        gap = abs(st.final_mse - quiet.final_mse) / quiet.final_mse
+        print(f"  {name}: without verbose_output {quiet_ms:.1f} ms, {quiet.num_lm_iterations} LM "
+              f"steps, MSE {quiet.final_mse:.9e}; verbose {ms:.1f} ms, {st.num_lm_iterations} "
+              f"steps, MSE {st.final_mse:.9e} (relative gap {gap:.3e}), {len(lines)} lines:",
+              flush=True)
+        for line in lines:
+            print(f"    {line}")
+        print(f"  {name}, lm_min_iterations={need}: {ms_min:.1f} ms, {st_min.num_lm_iterations} "
+              f"steps ({st_min.num_lm_successful_iterations} ok), MSE {st_min.final_mse:.9e}; "
+              f"last line: {lines_min[-1] if lines_min else None}", flush=True)
+        for run_lines, run in ((lines, st), (lines_min, st_min)):
+            steps = sum(line.startswith("BA: #") for line in run_lines)
+            if steps != run.num_lm_iterations or len(run_lines) != steps + 1:
+                raise AssertionError(f"{name}: {steps} step lines of {len(run_lines)} for "
+                                     f"{run.num_lm_iterations} LM steps")
+        if st_min.num_lm_iterations < need:
+            raise AssertionError(f"{name}: {st_min.num_lm_iterations} LM steps with "
+                                 f"lm_min_iterations={need}")
+        if dtype == np.float64 and gap > VERBOSE_MSE_TOL:
+            raise AssertionError(f"float64 verbose BA's final MSE {gap:.3e} from the other loop's")
+        if not st.final_mse < st.initial_mse:
+            raise AssertionError(f"{name}: the verbose BA did not lower the MSE")
+
+
+def legacy_grid(*modules):
+    """tests/torch_legacy_grid.legacy_grid, loaded from its file (the
+    tests directory is not a package): dmrecon's host code with the
+    legacy rectification swapped in."""
+    path = ROOT / "tests" / "torch_legacy_grid.py"
+    spec = importlib.util.spec_from_file_location("torch_legacy_grid", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.legacy_grid(*modules)
+
+
+def phase_legacy_sweep():
+    """The sweep solver on the legacy grid, on phase 10's scene and
+    settings at scale 1: card twice and CPU, phase 10's limits."""
+    base = WORK / "small"
+    settings = MvsSettings(nr_recon_neighbors=3, scale=1)
+    fitted = prepare_view(base / "sfm_cuda", 0, settings)["rect"][0]["H_fwd"]
+    with legacy_grid(mvs_sweep) as handed:
+        preps = [prepare_view(base / "sfm_cuda", i, settings) for i in range(4)]
+        if np.array_equal(preps[0]["rect"][0]["H_fwd"], fitted):
+            raise AssertionError("the legacy grid's H_fwd is the fitted grid's")
+        if not all(mvs_dmrecon._sweep_capable(p, settings) for p in preps):
+            raise AssertionError("a view of phase 10's scene does not rectify on the legacy grid")
+        depths = {}
+        for name, dev in (("cuda", "cuda"), ("cuda, again", "cuda"), ("cpu", "cpu")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            depth = mvs_dmrecon._run_batch(preps, settings, dev)[0]
+            torch.cuda.synchronize()
+            depths[name] = dict(enumerate(depth))
+            print(f"  {name}: 4 views in {time.perf_counter() - t0:.3f} s, fills "
+                  f"{[round(float((d > 0).mean()), 4) for d in depth]}", flush=True)
+    H, W = preps[0]["ref"].shape
+    my, mx = mvs_sweep.rect_margins(H, W)
+    identical = all(np.array_equal(depths["cuda"][i], depths["cuda, again"][i]) for i in range(4))
+    print(f"  views of {W}x{H}, legacy grid {W + 2 * mx}x{H + 2 * my} (rect_hw handed over: "
+          f"{sorted(set(handed))}); two card runs bit-identical: {identical}", flush=True)
+    if len(handed) != 3 or not identical \
+            or any(float((d > 0).mean()) < 0.3 for d in depths["cpu"].values()):
+        raise AssertionError("legacy grid: not three solves, two card runs differ, or a view's "
+                             "fill is under 0.3")
+    compare_depths(depths["cuda"], depths["cpu"])
+    shutil.rmtree(base, ignore_errors=True)
+
+
 def main() -> int:
     phase("1. environment")
     if not torch.cuda.is_available():
@@ -3043,6 +3166,15 @@ def main() -> int:
           f"phase 5's prebundle")
     phase_sfm_with_mesh(full_sfm)
     shutil.rmtree(WORK / "main", ignore_errors=True)
+
+    phase("30. verbose BA with lm_min_iterations on phase 8's problem; the sweep solver on the "
+          "legacy grid (rect_hw=None) on phase 10's scene, card against CPU")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    phase_verbose_ba()
+    phase_legacy_sweep()
+    print(f"  phase 30: {time.perf_counter() - t0:.1f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
 
     replaces = "mve_tpu/ops/pallas_matching.py:27"
     kernels = [

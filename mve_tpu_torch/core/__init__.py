@@ -7,8 +7,9 @@ libs/mve/view.h:9-37, scene.h:34-100, bundle_io.cc).
 """
 
 from .camera import CameraInfo
+from .mesh import TriangleMesh
 from .view import View
 from .scene import Scene
 from .bundle import Bundle, Feature2D, Feature3D
 
-__all__ = ["CameraInfo", "View", "Scene", "Bundle", "Feature2D", "Feature3D"]
+__all__ = ["CameraInfo", "TriangleMesh", "View", "Scene", "Bundle", "Feature2D", "Feature3D"]

@@ -18,6 +18,7 @@ from typing import List
 import numpy as np
 
 from .camera import CameraInfo
+from .mesh import TriangleMesh
 
 
 @dataclasses.dataclass
@@ -74,3 +75,12 @@ class Bundle:
         self.cameras[index] = CameraInfo()
         for f in self.features:
             f.refs = [r for r in f.refs if r.view_id != index]
+
+    def get_features_as_mesh(self):
+        """Features as a point-cloud TriangleMesh: positions, and colours
+        as float32 RGBA with alpha 1 (bundle.cc get_features_as_mesh)."""
+        mesh = TriangleMesh()
+        mesh.vertices = self.feature_positions()
+        mesh.vertex_colors = np.concatenate(
+            [self.feature_colors(), np.ones((len(self.features), 1), np.float32)], axis=1)
+        return mesh

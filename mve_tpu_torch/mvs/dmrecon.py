@@ -297,6 +297,8 @@ def _run_batch(prepared: list, s: Settings, device="cuda", phase_times=None):
                 fB[b, j] = r["fB"]
                 w0[b, j] = r["w0"]
                 dw[b, j] = r["dw"] / max(D - 1, 1)
+                # tests/torch_legacy_grid.py (the tests' and chip_smoke.py's
+                # legacy grid) sets rect_wh to (0, 0) for this packing.
                 rect_w = max(rect_w, r["rect_wh"][0])
                 rect_h = max(rect_h, r["rect_wh"][1])
         # Bucket the fitted grid to multiples of 32, as mve_tpu does (there

@@ -52,10 +52,17 @@ from .view_selection import _dot3
 # host-side rectification geometry
 # -----------------------------------------------------------------------
 
+def rect_margins(H: int, W: int):
+    """The fixed rect-grid margin (y, x) of the legacy rectification
+    (rectify_pair with margin_yx, solve_batch_sweep with rect_hw=None)."""
+    return H // 8, W // 8
+
+
 _RECT_PAD = 4  # rect-grid padding per side (NCC window + bilinear taps)
 
 
-def rectify_pair(K_r, R_r, t_r, K_j, R_j, t_j, image_wh, min_cross: float = 0.08):
+def rectify_pair(K_r, R_r, t_r, K_j, R_j, t_j, min_cross: float = 0.08,
+                 margin_yx=(0, 0), image_wh=None):
     """Closed-form rectifying rotation for one (ref, neighbor) pair.
 
     Returns dict(M_ref, M_nei, H_fwd, e3, fB, rect_wh) or None when the
@@ -68,11 +75,13 @@ def rectify_pair(K_r, R_r, t_r, K_j, R_j, t_j, image_wh, min_cross: float = 0.08
     H_fwd: ref pixel -> rect pixel homography (fixed table coords)
     e3:    new z axis in world coords (rect depth z' = L * (e3.dir))
     fB:    f_x * |baseline| — disparity per unit inverse rect depth
-    rect_wh: (w, h) grid size containing the WHOLE ref image (image_wh
-        = (w, h)) under H_fwd. The grid is FITTED: the rect camera's
+    rect_wh: (w, h) grid size containing the WHOLE ref image under
+        H_fwd. Pixels falling off the rect grid lose this pair, so when
+        image_wh=(w, h) is given the grid is FITTED: the rect camera's
         principal point is chosen so the mapped ref-image bbox starts at
-        (_RECT_PAD, _RECT_PAD). (mve_tpu also takes a fixed margin_yx
-        shift when image_wh is None; nothing here calls that.)
+        (_RECT_PAD, _RECT_PAD). Without image_wh the principal point is
+        shifted by margin_yx instead (the legacy fixed margins,
+        rect_margins) and rect_wh is None.
     """
     K_r = np.asarray(K_r, np.float64)
     K_j = np.asarray(K_j, np.float64)
@@ -94,21 +103,26 @@ def rectify_pair(K_r, R_r, t_r, K_j, R_j, t_j, image_wh, min_cross: float = 0.08
     e3 = np.cross(e1, e2)
     Rn = np.stack([e1, e2, e3])  # world -> rect rotation
     Kn = K_r.copy()
-    # Fit: map the ref image corners with the UNSHIFTED rect camera, then
-    # place the principal point so the bbox sits at the pad.
-    w, h = image_wh
-    Hf0 = Kn @ Rn @ R_r.T @ np.linalg.inv(K_r)
-    c = np.array([[0.5, 0.5, 1.0], [w - 0.5, 0.5, 1.0],
-                  [0.5, h - 0.5, 1.0], [w - 0.5, h - 0.5, 1.0]]).T
-    m = Hf0 @ c
-    if (m[2] <= 1e-9).any():
-        return None  # a ref corner maps behind the rect camera
-    uv = (m[:2] / m[2]).T
-    lo = np.floor(uv.min(axis=0)) - _RECT_PAD
-    hi = np.ceil(uv.max(axis=0)) + _RECT_PAD
-    Kn[0, 2] -= lo[0]
-    Kn[1, 2] -= lo[1]
-    rect_wh = (int(hi[0] - lo[0] + 1), int(hi[1] - lo[1] + 1))
+    rect_wh = None
+    if image_wh is not None:
+        # Fit: map the ref image corners with the UNSHIFTED rect camera,
+        # then place the principal point so the bbox sits at the pad.
+        w, h = image_wh
+        Hf0 = Kn @ Rn @ R_r.T @ np.linalg.inv(K_r)
+        c = np.array([[0.5, 0.5, 1.0], [w - 0.5, 0.5, 1.0],
+                      [0.5, h - 0.5, 1.0], [w - 0.5, h - 0.5, 1.0]]).T
+        m = Hf0 @ c
+        if (m[2] <= 1e-9).any():
+            return None  # a ref corner maps behind the rect camera
+        uv = (m[:2] / m[2]).T
+        lo = np.floor(uv.min(axis=0)) - _RECT_PAD
+        hi = np.ceil(uv.max(axis=0)) + _RECT_PAD
+        Kn[0, 2] -= lo[0]
+        Kn[1, 2] -= lo[1]
+        rect_wh = (int(hi[0] - lo[0] + 1), int(hi[1] - lo[1] + 1))
+    else:
+        Kn[1, 2] += margin_yx[0]  # principal point shift = grid margin
+        Kn[0, 2] += margin_yx[1]
     M_ref = K_r @ R_r @ Rn.T @ np.linalg.inv(Kn)
     M_nei = K_j @ R_j @ Rn.T @ np.linalg.inv(Kn)
     H_fwd = Kn @ Rn @ R_r.T @ np.linalg.inv(K_r)
@@ -305,7 +319,7 @@ def _solve_view_sweep(ref, neigh, nvalid, T, tvec, ray_z,
                       M_ref, M_nei, H_fwd, e3, fB, w0, dw,
                       init_depth, dmin, dmax, ray_world, cam_rel, scalars, *,
                       fw, k, D, n_prop, n_refine, n_plane_rounds, use_local,
-                      rect_hw, phase_times=None):
+                      rect_hw=None, phase_times=None):
     """One reference view end-to-end with table-lookup scoring.
 
     phase_times: optional list; when given, a (name, start event) pair is
@@ -327,7 +341,11 @@ def _solve_view_sweep(ref, neigh, nvalid, T, tvec, ray_z,
     mark("cube")
     # --- per-pair tables (rectify -> sweep -> reindex)
     c_j = _dot3(e3[:, None, None, :], ray_world[None])     # rect z cosine (J, H, W)
-    Hr, Wr = rect_hw
+    if rect_hw is None:  # legacy fixed margins
+        my, mx = rect_margins(H, W)
+        Hr, Wr = H + 2 * my, W + 2 * mx
+    else:
+        Hr, Wr = rect_hw
 
     tabs = []
     for j in range(J):
@@ -631,7 +649,7 @@ def solve_batch_sweep(ref, neigh, nvalid, T, tvec, ray_z,
                       M_ref, M_nei, H_fwd, e3, fB, w0, dw,
                       init_depth, dmin, dmax, ray_world, cam_rel, scalars, *,
                       fw: int, k: int, D: int, n_prop: int, n_refine: int,
-                      n_plane_rounds: int, use_local: bool, rect_hw,
+                      n_plane_rounds: int, use_local: bool, rect_hw=None,
                       phase_times=None):
     """Batched rectified-sweep reconstruction, one view after another on
     the device that holds the inputs.
@@ -639,7 +657,8 @@ def solve_batch_sweep(ref, neigh, nvalid, T, tvec, ray_z,
     Shapes as solver.solve_batch plus per-pair rectification data:
     M_ref/M_nei/H_fwd: (B, J, 3, 3); e3: (B, J, 3); fB/w0/dw: (B, J).
     rect_hw: (Hr, Wr) rect-grid size fitted on the host to cover every
-    pair's mapped ref image (rectify_pair rect_wh).
+    pair's mapped ref image (rectify_pair rect_wh), or None for the legacy
+    grid (H + 2 H//8, W + 2 W//8) of rectify_pair(margin_yx=rect_margins).
     """
     outs = [_solve_view_sweep(
         ref[b], neigh[b], nvalid[b], T[b], tvec[b], ray_z[b], M_ref[b], M_nei[b],

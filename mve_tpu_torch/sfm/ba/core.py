@@ -458,10 +458,36 @@ def lm_optimize(intr, trans, rot, points, obs, cam_idx, pt_idx, obs_valid, num_v
                                lm_mse_threshold=lm_mse_threshold)
 
 
+# mve_tpu's name for the loop on one device.
+lm_optimize_device = lm_optimize
+
+
+def _lm_trial(params, shards, num_valid, trr, mode, fixed_intrinsics, cg_max_iter):
+    """One trial step at trust radius `trr` (a tensor of the parameters'
+    dtype): build and solve the damped system, apply the update.
+    Returns (updated params, their MSE, predicted decrease, CG iterations)."""
+    intr, trans, rot, points = params
+    per, B, Cb, v, w = build_system_sharded(params, shards, mode, fixed_intrinsics)
+    if mode == 3:
+        dc, dp, pred, cg = solve_schur_sharded(per, shards, B, Cb, v, w, trr,
+                                               cg_max_iter=cg_max_iter)
+    elif mode == 1:
+        dc, pred, cg = solve_cameras_only(B, v, trr, cg_max_iter=cg_max_iter)
+        dp = torch.zeros_like(points)
+    else:
+        dp, pred = solve_points_only(Cb, w, trr)
+        dc = torch.zeros((intr.shape[0], 9), dtype=intr.dtype, device=intr.device)
+        cg = torch.zeros((), dtype=torch.int32, device=intr.device)
+    del per
+    new = apply_update(intr, trans, rot, points, dc, dp, fixed_intrinsics=fixed_intrinsics)
+    return new, mse_sharded(new, shards, num_valid), pred, cg
+
+
 def lm_optimize_sharded(intr, trans, rot, points, shards: ObservationShards, num_valid,
                         mode: int = 3, fixed_intrinsics: bool = False,
                         max_iters: int = 50, cg_max_iter: int = 1000,
-                        lm_delta_threshold: float = 1e-4, lm_mse_threshold: float = 1e-8):
+                        lm_delta_threshold: float = 1e-4, lm_mse_threshold: float = 1e-8,
+                        min_iters: int = 0, report=None):
     """The LM trust-region loop: trust region 1000 at the start, halved
     on a failed step, grown by the gain-ratio rule on success; stops on
     the delta-MSE ratio, the MSE threshold or max_iters. The parameters
@@ -473,33 +499,29 @@ def lm_optimize_sharded(intr, trans, rot, points, shards: ObservationShards, num
     stop flag once per step. Returns (intr, trans, rot, points, status)
     with status = [initial_mse, final_mse, lm_iters, lm_success, lm_fail,
     cg_iters] as a tensor of intr's dtype.
+
+    report: a callable taking one line of text. When given, the loop is
+    mve_tpu's verbose BundleAdjustment loop instead (_lm_host_loop, the
+    same trial step), which reads min_iters. Without it min_iters is not
+    read: mve_tpu's device loop ignores lm_min_iterations.
     """
-    dtype = intr.dtype
-    C = intr.shape[0]
-    mse0 = mse_sharded((intr, trans, rot, points), shards, num_valid)
-    trr = torch.tensor(1000.0, dtype=dtype, device=intr.device)
+    def trial(params, trr):
+        return _lm_trial(params, shards, num_valid, trr, mode, fixed_intrinsics, cg_max_iter)
+
+    params = (intr, trans, rot, points)
+    mse0 = mse_sharded(params, shards, num_valid)
+    if report is not None:
+        return _lm_host_loop(params, mse0, trial, float(num_valid), max_iters, min_iters,
+                             lm_delta_threshold, lm_mse_threshold, report)
+    dtype, dev = intr.dtype, intr.device
+    trr = torch.tensor(1000.0, dtype=dtype, device=dev)
     mse = mse0
     done = mse0 < lm_mse_threshold
-    zero = torch.zeros((), dtype=torch.int32, device=intr.device)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
     n_ok, n_fail, n_cg = zero, zero, zero
     it = 0
     while it < max_iters and not bool(done):
-        per, B, Cb, v, w = build_system_sharded((intr, trans, rot, points), shards, mode,
-                                                fixed_intrinsics)
-        if mode == 3:
-            dc, dp, pred, cg = solve_schur_sharded(per, shards, B, Cb, v, w, trr,
-                                                   cg_max_iter=cg_max_iter)
-        elif mode == 1:
-            dc, pred, cg = solve_cameras_only(B, v, trr, cg_max_iter=cg_max_iter)
-            dp = torch.zeros_like(points)
-        else:
-            dp, pred = solve_points_only(Cb, w, trr)
-            dc = torch.zeros((C, 9), dtype=dtype, device=intr.device)
-            cg = zero
-        del per
-        ni, nt, nr, npts = apply_update(intr, trans, rot, points, dc, dp,
-                                        fixed_intrinsics=fixed_intrinsics)
-        new_mse = mse_sharded((ni, nt, nr, npts), shards, num_valid)
+        new, new_mse, pred, cg = trial(params, trr)
         delta_mse = mse - new_mse
         success = delta_mse > 0.0
 
@@ -507,10 +529,7 @@ def lm_optimize_sharded(intr, trans, rot, points, shards: ObservationShards, num
         tr_up = 1.0 / torch.clamp(1.0 - (2.0 * gain - 1.0) ** 3, min=1.0 / 3.0)
         trr = torch.where(success, trr * tr_up, trr * 0.5)
 
-        intr = torch.where(success, ni, intr)
-        trans = torch.where(success, nt, trans)
-        rot = torch.where(success, nr, rot)
-        points = torch.where(success, npts, points)
+        params = tuple(torch.where(success, n, o) for n, o in zip(new, params))
         delta_ratio = 1.0 - new_mse / torch.clamp(mse, min=1e-300)
         mse = torch.where(success, new_mse, mse)
         done = (success & (delta_ratio < lm_delta_threshold)) | (mse < lm_mse_threshold)
@@ -518,6 +537,52 @@ def lm_optimize_sharded(intr, trans, rot, points, shards: ObservationShards, num
         n_fail = n_fail + (~success).to(torch.int32)
         n_cg = n_cg + cg
         it += 1
-    status = torch.stack([mse0, mse, torch.tensor(float(it), dtype=dtype, device=intr.device),
+    status = torch.stack([mse0, mse, torch.tensor(float(it), dtype=dtype, device=dev),
                           n_ok.to(dtype), n_fail.to(dtype), n_cg.to(dtype)])
-    return intr, trans, rot, points, status
+    return (*params, status)
+
+
+def _lm_host_loop(params, mse0, trial, n_obs, max_iters, min_iters,
+                  lm_delta_threshold, lm_mse_threshold, report):
+    """mve_tpu's verbose BundleAdjustment loop (mve_tpu/sfm/ba/lm.py:266-347)
+    around lm_optimize_sharded's trial step: the trust region, the gain
+    ratio and the MSE tests are host float64, each step reports a line
+    and the stop reports why, and the stop tests are skipped until
+    min_iters steps have run (the MSE test before a step, the
+    delta-ratio and max_iters tests after it)."""
+    dtype, dev = params[0].dtype, params[0].device
+    trr, mse = 1000.0, float(mse0)
+    it = n_ok = n_fail = n_cg = 0
+    while True:
+        if it + 1 > min_iters and mse < lm_mse_threshold:
+            report("BA: Satisfied MSE threshold.")
+            break
+        new, new_mse, pred, cg = trial(params, torch.tensor(trr, dtype=dtype, device=dev))
+        new_mse, cg = float(new_mse), int(cg)
+        delta_mse = mse - new_mse
+        delta_ratio = 1.0 - new_mse / max(mse, 1e-300)
+        n_cg += cg
+        success = delta_mse > 0.0
+        if success:
+            report(f"BA: #{it:2d} success, MSE {mse:.6e} -> {new_mse:.6e}, "
+                   f"CG {cg:3d}, TRR {trr:g}")
+            n_ok += 1
+            params, mse = new, new_mse
+            pred = float(pred)
+            gain = delta_mse * n_obs / pred if pred != 0.0 else 1.0
+            trr *= 1.0 / max(1.0 / 3.0, 1.0 - (2.0 * gain - 1.0) ** 3)
+        else:
+            report(f"BA: #{it:2d} failure, MSE {mse:.6e}, CG {cg:3d}, TRR {trr:g}")
+            n_fail += 1
+            trr *= 0.5
+        it += 1
+        if it < min_iters:
+            continue
+        if it >= max_iters:
+            report(f"BA: Reached maximum LM iterations of {max_iters}")
+            break
+        if success and delta_ratio < lm_delta_threshold:
+            report(f"BA: Satisfied delta mse ratio threshold of {lm_delta_threshold}")
+            break
+    status = torch.tensor([float(mse0), mse, it, n_ok, n_fail, n_cg], dtype=dtype, device=dev)
+    return (*params, status)

@@ -34,6 +34,8 @@ class BAOptions:
     bundle_mode: BundleMode = BundleMode.CAMERAS_AND_POINTS
     fixed_intrinsics: bool = False
     lm_max_iterations: int = 50
+    # Read only with verbose_output, as in mve_tpu (see BundleAdjustment).
+    lm_min_iterations: int = 0
     lm_delta_threshold: float = 1e-4
     lm_mse_threshold: float = 1e-8
     cg_max_iterations: int = 1000
@@ -85,13 +87,17 @@ def _bucket(n, minimum=64):
 
 def optimize_arrays(intr_np, trans_np, rot_np, points_np,
                     obs_np, cam_idx_np, pt_idx_np,
-                    opts: BAOptions, device="cuda") -> tuple:
+                    opts: BAOptions, device="cuda", report=None) -> tuple:
     """Array-level LM optimisation.
 
     Inputs are unpadded numpy arrays: intr (C,3) [f,k0,k1], trans (C,3),
     rot (C,3,3), points (P,3), obs (O,2), cam_idx (O,), pt_idx (O,).
     Returns (intr, trans, rot, points, BAStatus) with the same unpadded
     shapes (float64).
+
+    report: None (mve_tpu's optimize_arrays: the loop paced by the
+    device, lm_min_iterations not read), or a callable that takes each
+    line of the host-driven verbose loop (core.lm_optimize_sharded).
     """
     t0 = time.perf_counter()
     mesh = opts.mesh or Mesh([resolve_device(device)])
@@ -122,7 +128,8 @@ def optimize_arrays(intr_np, trans_np, rot_np, points_np,
     kwargs = dict(mode=mode, fixed_intrinsics=opts.fixed_intrinsics,
                   max_iters=opts.lm_max_iterations, cg_max_iter=opts.cg_max_iterations,
                   lm_delta_threshold=opts.lm_delta_threshold,
-                  lm_mse_threshold=opts.lm_mse_threshold)
+                  lm_mse_threshold=opts.lm_mse_threshold,
+                  min_iters=opts.lm_min_iterations, report=report)
     rot = np.ascontiguousarray(rot)
     num_valid = np.asarray(float(O), dtype)
     ii, tt, rr, pp, st = distributed_ba.lm_optimize_distributed(
@@ -145,8 +152,10 @@ class BundleAdjustment:
     """Mirrors sfm::ba::BundleAdjustment (bundle_adjustment.h:51-134).
 
     float64 (BAOptions.dtype) runs on the same device as float32. With
-    verbose_output the status is printed once the loop has ended; the
-    per-step printout of mve_tpu's host-driven loop is not ported."""
+    verbose_output the host drives the loop as in mve_tpu: one printed
+    line per LM step and one for the stop, the trust region in host
+    float64, and lm_min_iterations honoured. Without it the loop is the
+    one optimize_arrays runs, and lm_min_iterations is not read."""
 
     def __init__(self, options: BAOptions | None = None, device="cuda"):
         self.opts = options or BAOptions()
@@ -158,10 +167,9 @@ class BundleAdjustment:
         points, _ = problem.point_array()
         obs, cam_idx, pt_idx = problem.observation_arrays()
         ii, tt, rr, pp, self.status = optimize_arrays(
-            intr, trans, rot, points, obs, cam_idx, pt_idx, self.opts, self.device)
+            intr, trans, rot, points, obs, cam_idx, pt_idx, self.opts, self.device,
+            report=print if self.opts.verbose_output else None)
         problem.update_from_arrays(ii, tt, rr, pp)
-        if self.opts.verbose_output:
-            self.print_status()
         return self.status
 
     def print_status(self) -> None:

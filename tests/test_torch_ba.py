@@ -15,7 +15,16 @@ Tolerances, each relative to the largest magnitude of the quantity:
   that in float32 one step more or fewer is allowed: a step whose MSE
   ratio lands on 1e-4 within float32 rounding ends the loop in one
   package and not the other (measured: 1 of the 6 float32 cases).
+- verbose BundleAdjustment.optimize (the host-driven loop): in float64
+  each printed line equal to mve_tpu's but for its CG count, which is
+  held within test_solvers' 5% (mve_tpu's own verbose and device loops
+  differ by 2 in 108 CG iterations on this problem); float32 one LM step
+  more or fewer. Final parameters as optimize_arrays.
 """
+
+import contextlib
+import io
+import re
 
 import numpy as np
 import pytest
@@ -153,15 +162,28 @@ def test_optimize_arrays(problem, mode, fixed, dtype):
 
 
 def test_ba_options_from_dict():
-    """interop builds BAOptions from a dict and refuses a field the port
-    has no use for (mve_tpu's lm_min_iterations is read only by its
-    host-driven verbose loop, which is not ported)."""
+    """interop builds BAOptions from a dict, lm_min_iterations included,
+    and refuses a field BAOptions does not have."""
     from mve_tpu_torch import interop
 
-    *_, ba = interop.options_from_dict({"ba": {"lm_max_iterations": 7, "dtype": np.float64}})
+    *_, ba = interop.options_from_dict({"ba": {"lm_max_iterations": 7, "dtype": np.float64,
+                                               "lm_min_iterations": 4}})
     assert ba.lm_max_iterations == 7 and ba.dtype == np.float64
+    assert ba.lm_min_iterations == 4
     with pytest.raises(ValueError):
-        interop.options_from_dict({"ba": {"lm_min_iterations": 1}})
+        interop.options_from_dict({"ba": {"lm_min_iteration": 1}})
+
+
+def _ba_problem(mod, problem):
+    """A mod.BAProblem (mve_tpu's or the port's) holding the arrays."""
+    intr, trans, rot, pts, obs, ci, pi, _ = (np.asarray(a) for a in problem)
+    cams = [mod.BACamera(focal_length=float(i[0]), distortion=i[1:3].astype(np.float64),
+                         translation=t.astype(np.float64), rotation=r.astype(np.float64))
+            for i, t, r in zip(intr, trans, rot)]
+    points = [mod.BAPoint(pos=p.astype(np.float64)) for p in pts]
+    observations = [mod.BAObservation(o.astype(np.float64), int(c), int(p))
+                    for o, c, p in zip(obs, ci, pi)]
+    return mod.BAProblem(cams, points, observations)
 
 
 def test_bundle_adjustment_on_a_problem(problem):
@@ -169,21 +191,100 @@ def test_bundle_adjustment_on_a_problem(problem):
     from mve_tpu.sfm.ba import problem as jprob
     from mve_tpu_torch.sfm.ba import problem as tprob
 
-    intr, trans, rot, pts, obs, ci, pi, _ = (np.asarray(a) for a in problem)
-
-    def build(mod):
-        cams = [mod.BACamera(focal_length=float(i[0]), distortion=i[1:3].astype(np.float64),
-                             translation=t.astype(np.float64), rotation=r.astype(np.float64))
-                for i, t, r in zip(intr, trans, rot)]
-        points = [mod.BAPoint(pos=p.astype(np.float64)) for p in pts]
-        observations = [mod.BAObservation(o.astype(np.float64), int(c), int(p))
-                        for o, c, p in zip(obs, ci, pi)]
-        return mod.BAProblem(cams, points, observations)
-
-    pj, pt = build(jprob), build(tprob)
+    pj, pt = _ba_problem(jprob, problem), _ba_problem(tprob, problem)
     sj = JBA(JOptions(lm_max_iterations=20)).optimize(pj)
     st = TBA(TOptions(lm_max_iterations=20), device="cpu").optimize(pt)
     assert abs(st.final_mse - sj.final_mse) <= 1e-4 * sj.final_mse
     for cj, ct in zip(pj.cameras, pt.cameras):
         assert abs(cj.focal_length - ct.focal_length) < 1e-4
         np.testing.assert_allclose(ct.rotation, cj.rotation, atol=1e-4)
+
+
+_CG = re.compile(r"CG +(\d+)")
+
+
+def _verbose_run(ba, prob):
+    """(printed lines, status, (intr, trans, rot, points)) of ba.optimize."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        status = ba.optimize(prob)
+    return out.getvalue().splitlines(), status, prob.camera_arrays()[:3] + prob.point_array()[:1]
+
+
+def _same_lines(got, want):
+    """Equal lines but for each step's CG count, held within 5%."""
+    assert len(got) == len(want), (got, want)
+    for g, w in zip(got, want):
+        assert _CG.sub("CG", g) == _CG.sub("CG", w), (g, w)
+        if _CG.search(w):
+            cg_g, cg_w = int(_CG.search(g)[1]), int(_CG.search(w)[1])
+            assert abs(cg_g - cg_w) <= 0.05 * cg_w, (g, w)
+
+
+def _runs(problem, **opts):
+    from mve_tpu.sfm.ba import problem as jprob
+    from mve_tpu_torch.sfm.ba import problem as tprob
+
+    a = _verbose_run(JBA(JOptions(**opts)), _ba_problem(jprob, problem))
+    b = _verbose_run(TBA(TOptions(**opts), device="cpu"), _ba_problem(tprob, problem))
+    return a, b
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("mode,fixed", MODES)
+def test_verbose_optimize(problem, mode, fixed, dtype):
+    """verbose_output: mve_tpu's host-driven loop, line for line."""
+    (la, sa, pa), (lb, sb, pb) = _runs(problem, bundle_mode=mode, fixed_intrinsics=fixed,
+                                       dtype=dtype, verbose_output=True)
+    f64 = dtype == np.float64
+    steps = [x for x in lb if x.startswith("BA: #")]
+    assert len(steps) == sb.num_lm_iterations and len(lb) == len(steps) + 1
+    assert lb[-1].startswith(("BA: Satisfied", "BA: Reached"))
+    if f64:
+        _same_lines(lb, la)
+    else:
+        assert abs(sb.num_lm_iterations - sa.num_lm_iterations) <= 1
+    assert abs(sb.final_mse - sa.final_mse) <= (1e-9 if f64 else 1e-4) * sa.final_mse
+    for x, y in zip(pa, pb):
+        np.testing.assert_allclose(y, x, atol=1e-6 if f64 else 1e-4)
+
+
+@pytest.mark.parametrize("verbose", [True, False])
+def test_lm_min_iterations(problem, verbose):
+    """lm_min_iterations beyond the natural step count: the verbose loop
+    runs at least that many steps in both packages; without
+    verbose_output both ignore it (float64)."""
+    base = dict(dtype=np.float64, verbose_output=verbose)
+    (_, natural_a, _), (lines_n, natural_b, pn) = _runs(problem, **base)
+    n = natural_b.num_lm_iterations
+    assert n == natural_a.num_lm_iterations and n + 3 < 50
+    (la, sa, pa), (lb, sb, pb) = _runs(problem, lm_min_iterations=n + 3, **base)
+    if verbose:
+        assert sa.num_lm_iterations >= n + 3 and sb.num_lm_iterations >= n + 3
+        assert len(lb) == sb.num_lm_iterations + 1
+        # The steps before convergence are the natural run's; after it,
+        # success or failure turns on rounding in both packages.
+        _same_lines(lb[:n], la[:n])
+        _same_lines(lb[:n], lines_n[:n])
+        assert abs(sb.final_mse - sa.final_mse) <= 1e-9 * sa.final_mse
+    else:
+        assert lb == la == []
+        assert sa.num_lm_iterations == sb.num_lm_iterations == n
+        for x, y in zip(pn, pb):
+            np.testing.assert_array_equal(y, x)
+
+
+def test_verbose_over_a_mesh(problem):
+    """BAOptions.mesh takes the verbose loop too: two CPU shards print
+    the lines of one device (float64; CG counts within 5%)."""
+    from mve_tpu_torch.parallel.mesh import Mesh
+    from mve_tpu_torch.sfm.ba import problem as tprob
+
+    opts = dict(dtype=np.float64, verbose_output=True)
+    one = _verbose_run(TBA(TOptions(**opts), device="cpu"), _ba_problem(tprob, problem))
+    two = _verbose_run(TBA(TOptions(mesh=Mesh(["cpu", "cpu"]), **opts), device="cpu"),
+                       _ba_problem(tprob, problem))
+    _same_lines(two[0], one[0])
+    assert two[1].num_lm_iterations == one[1].num_lm_iterations == len(one[0]) - 1
+    for x, y in zip(one[2], two[2]):
+        np.testing.assert_allclose(y, x, atol=1e-8)

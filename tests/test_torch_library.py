@@ -1,7 +1,8 @@
 """The port's library modules that no app calls against mve_tpu's, on the
 CPU: colour conversions, triangle geometry and intersection tests (torch
 functions), curves, volumes and marching cubes (numpy copies), and the
-matching helpers count_consistent_matches and combine_results.
+matching helpers count_consistent_matches and combine_results, and
+Bundle.get_features_as_mesh.
 
 Inputs are seeded numpy arrays, float32 for the torch functions (mve_tpu
 computes in float32 without x64). Limits: the torch functions within
@@ -21,6 +22,7 @@ import torch
 
 import jax.numpy as jnp
 
+from mve_tpu.core import bundle as jbundle
 from mve_tpu.core import image_color as jcolor
 from mve_tpu.core import marching_cubes as jmc
 from mve_tpu.core import volume as jvolume
@@ -29,6 +31,7 @@ from mve_tpu.math import geometry as jgeom
 from mve_tpu.math import intersect as jisect
 from mve_tpu.sfm import matching as jmatching
 
+from mve_tpu_torch.core import bundle as pbundle
 from mve_tpu_torch.core import image_color as pcolor
 from mve_tpu_torch.core import marching_cubes as pmc
 from mve_tpu_torch.core import volume as pvolume
@@ -262,3 +265,24 @@ def test_matching_helpers():
     assert np.array_equal(got.matches_1_2, want.matches_1_2)
     assert np.array_equal(got.matches_2_1, want.matches_2_1)
     assert got.matches_1_2.dtype == np.int32
+
+
+@pytest.mark.parametrize("n", [0, 37])
+def test_bundle_features_as_mesh(n):
+    """The same features give identical vertex and RGBA colour arrays,
+    float32, alpha 1, and no faces."""
+    rng = np.random.RandomState(n)
+    pos, col = rng.randn(n, 3), rng.rand(n, 3)
+
+    def mesh(mod):
+        b = mod.Bundle()
+        b.features = [mod.Feature3D(p, c) for p, c in zip(pos, col)]
+        return b.get_features_as_mesh()
+
+    want, got = mesh(jbundle), mesh(pbundle)
+    for key in ("vertices", "vertex_colors", "faces"):
+        a, b = getattr(want, key), getattr(got, key)
+        assert a.dtype == b.dtype and np.array_equal(a, b), key
+    assert got.vertices.shape == (n, 3) and got.vertex_colors.shape == (n, 4)
+    assert got.vertex_colors.dtype == np.float32 and np.all(got.vertex_colors[:, 3] == 1)
+    assert got.num_faces() == 0

@@ -51,6 +51,7 @@ from mve_tpu_torch.mvs import solver as psolver, sweep_solver as psweep
 from mve_tpu_torch.mvs import view_selection as pvs
 
 from tests.synthetic import PLANE_Z, make_plane_scene, make_texture, render_view
+from tests.torch_legacy_grid import legacy_grid
 
 # Test workers run side by side: one intra-op thread each.
 torch.set_num_threads(1)
@@ -202,11 +203,22 @@ def _random_pair(seed):
     return K, np.eye(3), np.zeros(3), K, np.asarray(R_j), -np.asarray(R_j) @ C_j, (W, H)
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2, 3])
-def test_rectify_pair_identical(seed):
+@pytest.mark.parametrize("seed,legacy", [(0, False), (1, False), (2, False), (3, False),
+                                         (0, True), (1, True)],
+                         ids=["0", "1", "2", "3", "margin-0", "margin-1"])
+def test_rectify_pair_identical(seed, legacy):
+    """The fitted grid (image_wh) and the legacy fixed margins
+    (margin_yx = rect_margins, rect_wh None)."""
     args = _random_pair(seed)
-    a = jsweep.rectify_pair(*args[:6], image_wh=args[6])
-    b = psweep.rectify_pair(*args[:6], image_wh=args[6])
+    if legacy:
+        W, H = args[6]
+        assert psweep.rect_margins(H, W) == jsweep.rect_margins(H, W) == (6, 8)
+        a = jsweep.rectify_pair(*args[:6], margin_yx=jsweep.rect_margins(H, W))
+        b = psweep.rectify_pair(*args[:6], margin_yx=psweep.rect_margins(H, W))
+        assert a["rect_wh"] is b["rect_wh"] is None
+    else:
+        a = jsweep.rectify_pair(*args[:6], image_wh=args[6])
+        b = psweep.rectify_pair(*args[:6], image_wh=args[6])
     assert set(a) == set(b)
     for key in a:
         assert np.array_equal(np.asarray(a[key]), np.asarray(b[key])), key
@@ -499,6 +511,35 @@ def test_solve_batch_sweep(plane_prep):
     pout = pdm._run_batch(pp, ps, "cpu")
     H, W = jp[0]["ref"].shape
     _compare(jout, pout, H, W, 2e-3)
+
+
+def test_solve_batch_sweep_legacy_grid(scenes, plane_prep):
+    """solve_batch_sweep(rect_hw=None) on plane_prep's views, the pairs
+    rectified with rectify_pair(margin_yx=rect_margins(H, W))."""
+    with legacy_grid(jsweep, psweep) as handed:
+        js, jp, ps, pp = _both(str(scenes / "plane"), [0, 2])
+        assert all(jdm._sweep_capable(p, js) for p in jp)
+        H, W = jp[0]["ref"].shape
+        fitted = plane_prep[3][0]["rect"][0]["H_fwd"]
+        assert not np.array_equal(pp[0]["rect"][0]["H_fwd"], fitted)
+        _compare(jdm._run_batch(jp, js), pdm._run_batch(pp, ps, "cpu"), H, W, 2e-3)
+    assert len(handed) == 2
+
+
+@pytest.mark.parametrize("solver", ["sweep", "warp"])
+def test_chunk_bounds_memory_only(scenes, plane_prep, monkeypatch, solver):
+    """The candidates scored at a time (solver._CHUNK, mve_tpu's `chunk`
+    keyword, a stated departure) change no result of either solver."""
+    if solver == "sweep":
+        _, _, ps, pp = plane_prep
+        mod = psweep
+    else:
+        _, _, ps, pp = _both(str(scenes / "plane"), [0], use_sweep=False)
+        mod = psolver
+    want = pdm._run_batch(pp, ps, "cpu")
+    monkeypatch.setattr(mod, "_CHUNK", 3)
+    got = pdm._run_batch(pp, ps, "cpu")
+    assert all(np.array_equal(x, y) for x, y in zip(got, want))
 
 
 @pytest.mark.parametrize("exact", [False, True])
