@@ -241,6 +241,7 @@ from mve_tpu_torch.sfm.bundler.matching import Matching, MatchingOptions
 from mve_tpu_torch.sfm.bundler.pipeline import SfmOptions, run_incremental_sfm
 from mve_tpu_torch.sfm.bundler.tracks import Tracks
 from mve_tpu_torch.sfm.cascade_hashing import CascadeHashing
+from mve_tpu_torch.utils import tracing
 
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
@@ -1259,24 +1260,27 @@ def phase_full_dmrecon():
     if len(truth) != MAIN_VIEWS or worst > TRUTH_TOL or gross > GROSS_TOL:
         raise AssertionError("dmrecon: depths off the scene's planes")
 
-    # One view alone: the solver's phases by CUDA events, then under the
-    # profiler (busy share and the ten most expensive device ops).
+    # One view alone: its time, then under the profiler (the solver's
+    # phases from the CUDA events of its mvs.solve.<phase> spans, busy
+    # share and the ten most expensive device ops).
     settings = MvsSettings(scale=2)
     prep = prepare_view(scene, 0, settings)
     if not mvs_dmrecon._sweep_capable(prep, settings):
         raise AssertionError("view 0 does not take the sweep solver")
     mvs_dmrecon._run_batch([prep], settings, "cuda")      # warm-up
-    marks = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    mvs_dmrecon._run_batch([prep], settings, "cuda", marks)
+    mvs_dmrecon._run_batch([prep], settings, "cuda")
     view_ms = 1e3 * (time.perf_counter() - t0)
-    phases = {a[0]: a[1].elapsed_time(b[1]) for a, b in zip(marks, marks[1:])}
-    print(f"  view 0 alone (sweep solver, {prep['n_selected']} neighbours): {view_ms:.1f} ms; "
-          f"phases on the card (ms) " + ", ".join(f"{k} {v:.1f}" for k, v in phases.items()),
-          flush=True)
+    tracing.clear()
     _, pwall, busy, tops = device_profile(lambda: mvs_dmrecon._run_batch([prep], settings, "cuda"),
                                           top=10)
+    phases = {r.name.removeprefix("mvs.solve."): r.device_ms for r in tracing.records()
+              if r.name.startswith("mvs.solve.")}
+    tracing.clear()
+    print(f"  view 0 alone (sweep solver, {prep['n_selected']} neighbours): {view_ms:.1f} ms; "
+          f"phases on the card under the profiler (ms) "
+          + ", ".join(f"{k} {v:.1f}" for k, v in phases.items()), flush=True)
     print(f"  under torch.profiler: {pwall:.1f} ms, of which device kernels {busy:.1f} ms "
           f"({100 * busy / pwall:.1f}% busy, {100 - 100 * busy / pwall:.1f}% idle); top device ops:",
           flush=True)

@@ -25,6 +25,7 @@ from ..core import Scene
 from ..mvs import DMRecon, Settings
 from ..parallel.multihost import num_processes_from_env, process_id_from_env
 from ..utils.timer import WallTimer
+from ..utils.tracing import span
 
 # Per-run stats (mean depth-map fill ratio etc.) recorded by
 # reconstruct_views — the analog of the reference's per-view fill
@@ -84,6 +85,7 @@ class FancyProgressPrinter:
             time.sleep(self.interval)
 
 
+@span("dmrecon.call")
 def reconstruct_views(scene_path: str, *, scale: int = 0, view_ids=None,
                       max_pixels: int = 0, force: bool = False,
                       settings: Settings | None = None,
@@ -95,39 +97,42 @@ def reconstruct_views(scene_path: str, *, scale: int = 0, view_ids=None,
     across processes by view id modulo the count (per-view artifacts on
     shared storage make this restartable and embarrassingly parallel).
 
-    Returns the number of depth maps written."""
+    Returns the number of depth maps written. The call is a
+    dmrecon.call span (utils/tracing.py), its stages spans inside it."""
     from ..mvs.dmrecon import reconstruct_batch
 
     dev = resolve_device(device)
-    scene = Scene(scene_path)
-    views = scene.get_views()
-    base = settings or Settings()
-    todo = []
-    for i, view in enumerate(views):
-        if view is None or not view.camera.valid:
-            continue
-        if view_ids is not None and i not in view_ids:
-            continue
-        if num_processes > 1 and i % num_processes != process_id:
-            continue
-        s = scale
-        if max_pixels > 0 and view.has_image(base.image_embedding):
-            w, h = view.get_image_size(base.image_embedding)
-            s = 0
-            while (w >> s) * (h >> s) > max_pixels:
-                s += 1
-        if not force and view.has_image(f"depth-L{s}"):
-            if verbose:
-                print(f"View {i}: depth-L{s} exists, skipping.")
-            continue
-        todo.append((i, s))
+    with span("dmrecon.scene_open"):
+        scene = Scene(scene_path)
+        views = scene.get_views()
+        base = settings or Settings()
+        todo = []
+        for i, view in enumerate(views):
+            if view is None or not view.camera.valid:
+                continue
+            if view_ids is not None and i not in view_ids:
+                continue
+            if num_processes > 1 and i % num_processes != process_id:
+                continue
+            s = scale
+            if max_pixels > 0 and view.has_image(base.image_embedding):
+                w, h = view.get_image_size(base.image_embedding)
+                s = 0
+                while (w >> s) * (h >> s) > max_pixels:
+                    s += 1
+            if not force and view.has_image(f"depth-L{s}"):
+                if verbose:
+                    print(f"View {i}: depth-L{s} exists, skipping.")
+                continue
+            todo.append((i, s))
     if not todo:
         return 0
     timer = WallTimer()
     results = reconstruct_batch(scene, base, todo, verbose=verbose, device=dev)
     for vid in results:
-        views[vid].save_view()
-        views[vid].cache_cleanup()
+        with span("dmrecon.save"):
+            views[vid].save_view()
+            views[vid].cache_cleanup()
     LAST_STATS.clear()
     if results:
         fills = list(results.values())

@@ -26,6 +26,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from ..utils.ini import parse_ini_file, save_ini_file
+from ..utils.tracing import count
 from .camera import CameraInfo
 from . import image_io
 
@@ -295,13 +296,19 @@ class View:
         )
 
     def save_view(self, path: Optional[str] = None) -> None:
-        """Write meta.ini and all dirty embeddings (view.cc save path)."""
+        """Write meta.ini and all dirty embeddings (view.cc save path),
+        counting the files' sizes as `bytes_written` on the open span."""
         if path is not None:
             self._path = path.rstrip("/")
         if self._path is None:
             raise ValueError("view has no directory; pass a path")
+
+        def written(fname):
+            count("bytes_written", os.path.getsize(os.path.join(self._path, fname)))
+
         os.makedirs(self._path, exist_ok=True)
         save_ini_file(self._meta, os.path.join(self._path, META_FILE))
+        written(META_FILE)
         self._meta_dirty = False
         for proxy in self._images.values():
             if not proxy.dirty:
@@ -312,6 +319,7 @@ class View:
             use_png = img.dtype == np.uint8 and img.shape[2] <= 4
             new_fname = proxy.name + (".png" if use_png else ".mvei")
             image_io.save_image(img, os.path.join(self._path, new_fname))
+            written(new_fname)
             if proxy.filename and proxy.filename != new_fname:
                 try:
                     os.unlink(os.path.join(self._path, proxy.filename))
@@ -325,6 +333,7 @@ class View:
             new_fname = proxy.name + ".blob"
             with open(os.path.join(self._path, new_fname), "wb") as f:
                 f.write(proxy.data)
+            written(new_fname)
             proxy.filename = new_fname
             proxy.dirty = False
 

@@ -18,6 +18,8 @@ from typing import Dict, Tuple
 
 import numpy as np
 
+from ..utils.tracing import count, span
+
 
 def half_size_gaussian_np(img: np.ndarray) -> np.ndarray:
     """Pure-numpy Gaussian 4x4-tap half-size, numerically identical to
@@ -58,7 +60,10 @@ class ImagePyramidCache:
     @classmethod
     def get_level(cls, scene, view_id: int, embedding: str, level: int,
                   to_gray) -> np.ndarray:
-        """Return the level-`level` grayscale image of a view, cached."""
+        """Return the level-`level` grayscale image of a view, cached. A
+        hit counts `level_hits` on the open span; a miss is an
+        mvs.load_level span, counting `images_decoded` and `bytes_decoded`
+        (a level-0 miss) and `halvings`."""
         with cls._lock:
             if (cls._scene is None or cls._scene() is not scene
                     or cls._embedding != embedding):
@@ -66,25 +71,30 @@ class ImagePyramidCache:
                 cls._levels = {}
             cached = cls._levels.get((view_id, level))
         if cached is not None:
+            count("level_hits")
             return cached
-        # Build from the nearest cached coarser... simplest: from level 0.
-        with cls._lock:
-            base = cls._levels.get((view_id, 0))
-        if base is None:
-            view = scene.get_views()[view_id]
-            base = to_gray(view.get_image(embedding))
+        with span("mvs.load_level"):
+            # Build from the nearest cached coarser... simplest: from level 0.
             with cls._lock:
-                cls._levels[(view_id, 0)] = base
-        img = base
-        for lv in range(1, level + 1):
-            with cls._lock:
-                nxt = cls._levels.get((view_id, lv))
-            if nxt is None:
-                nxt = half_size_gaussian_np(img)
+                base = cls._levels.get((view_id, 0))
+            if base is None:
+                image = scene.get_views()[view_id].get_image(embedding)
+                count("images_decoded")
+                count("bytes_decoded", image.nbytes)
+                base = to_gray(image)
                 with cls._lock:
-                    cls._levels[(view_id, lv)] = nxt
-            img = nxt
-        return img
+                    cls._levels[(view_id, 0)] = base
+            img = base
+            for lv in range(1, level + 1):
+                with cls._lock:
+                    nxt = cls._levels.get((view_id, lv))
+                if nxt is None:
+                    nxt = half_size_gaussian_np(img)
+                    count("halvings")
+                    with cls._lock:
+                        cls._levels[(view_id, lv)] = nxt
+                img = nxt
+            return img
 
     @classmethod
     def cleanup(cls) -> None:

@@ -38,6 +38,8 @@ value is read back to the host inside a view's solve.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -46,6 +48,7 @@ from .solver import (_CHUNK, _chunked_best, _combine_sel, _combine_topk, _f32,
                      _local_view_selection, _ncc_box_all, _pick, _plane_normals,
                      _ref_box_stats, _reselect_with_fallback, _roll)
 from .view_selection import _dot3
+from ..utils.tracing import span
 
 
 # -----------------------------------------------------------------------
@@ -319,12 +322,10 @@ def _solve_view_sweep(ref, neigh, nvalid, T, tvec, ray_z,
                       M_ref, M_nei, H_fwd, e3, fB, w0, dw,
                       init_depth, dmin, dmax, ray_world, cam_rel, scalars, *,
                       fw, k, D, n_prop, n_refine, n_plane_rounds, use_local,
-                      rect_hw=None, phase_times=None):
+                      rect_hw=None, phase):
     """One reference view end-to-end with table-lookup scoring.
 
-    phase_times: optional list; when given, a (name, start event) pair is
-    appended at each phase boundary (CUDA events, so the caller can time
-    the phases on the card without a sync inside the solve)."""
+    phase(name): called at each phase's start (see _phase_spans)."""
     H, W = ref.shape
     J = neigh.shape[0]
     dev = ref.device
@@ -332,13 +333,7 @@ def _solve_view_sweep(ref, neigh, nvalid, T, tvec, ray_z,
         scalars[0], scalars[1], scalars[2], scalars[3])
     zeros = torch.zeros_like(init_depth)
 
-    def mark(name):
-        if phase_times is not None:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            phase_times.append((name, ev))
-
-    mark("cube")
+    phase("cube")
     # --- per-pair tables (rectify -> sweep -> reindex)
     c_j = _dot3(e3[:, None, None, :], ray_world[None])     # rect z cosine (J, H, W)
     if rect_hw is None:  # legacy fixed margins
@@ -364,7 +359,7 @@ def _solve_view_sweep(ref, neigh, nvalid, T, tvec, ray_z,
         ncc, ok = _lookup(tab, c_j, w0, dw, nvalid, L)
         return _select_views(ncc, ok, sel, sel_valid)
 
-    mark("lookup")
+    phase("lookup")
     # --- plane sweep init: D_sweep ray-length planes + the seed field
     s0, k0 = score_all(init_depth[None])
     best = (init_depth, s0[0], k0[0])
@@ -476,7 +471,7 @@ def _solve_view_sweep(ref, neigh, nvalid, T, tvec, ray_z,
 
     bd = torch.clamp(bd, dmin * 0.5, dmax * 2.0)
 
-    mark("exact")
+    phase("exact")
     # --- exact true-warp polish + rescore. Table scores are
     # piecewise-linear between the D planes, so the lookup refinement
     # snaps toward plane nodes; parabolic steps on the TRUE box NCC
@@ -568,7 +563,7 @@ def _solve_view_sweep(ref, neigh, nvalid, T, tvec, ray_z,
     bzx = torch.clamp(_box_sum(gx, 3) * _recip(9.0), -cap, cap)
     bzy = torch.clamp(_box_sum(gy, 3) * _recip(9.0), -cap, cap)
 
-    mark("center_plane")
+    phase("center_plane")
     # Final CENTER-PLANE acceptance pass: the box NCC used through the
     # solve warps every window tap at that tap's OWN depth-field value,
     # so at depth boundaries taps go invalid and the score collapses — a
@@ -623,7 +618,7 @@ def _solve_view_sweep(ref, neigh, nvalid, T, tvec, ray_z,
         ncc_pl = torch.where(valid_pl & nvalid[:, None, None, None], ncc_pl, -1.0)[:, 0]
         bs = torch.maximum(bs, select_and_mean(ncc_pl, bd))
 
-    mark("accept")
+    phase("accept")
     # --- confidence + acceptance (patch_optimization.cc:120-142): the
     # reference's score is (MEAN selected NCC - acceptNCC)/(1 - accept).
     conf = torch.clamp((bs - accept_ncc) / (1.0 - accept_ncc), min=0.0)
@@ -641,7 +636,6 @@ def _solve_view_sweep(ref, neigh, nvalid, T, tvec, ray_z,
     accepted = conf > 0.0
     depth_out = torch.where(accepted, bd, 0.0)
     dz_out = torch.where(accepted[..., None], torch.stack([bzx, bzy], dim=-1), 0.0)
-    mark("end")
     return depth_out, conf, dz_out, accepted.sum()
 
 
@@ -649,8 +643,7 @@ def solve_batch_sweep(ref, neigh, nvalid, T, tvec, ray_z,
                       M_ref, M_nei, H_fwd, e3, fB, w0, dw,
                       init_depth, dmin, dmax, ray_world, cam_rel, scalars, *,
                       fw: int, k: int, D: int, n_prop: int, n_refine: int,
-                      n_plane_rounds: int, use_local: bool, rect_hw=None,
-                      phase_times=None):
+                      n_plane_rounds: int, use_local: bool, rect_hw=None):
     """Batched rectified-sweep reconstruction, one view after another on
     the device that holds the inputs.
 
@@ -659,12 +652,27 @@ def solve_batch_sweep(ref, neigh, nvalid, T, tvec, ray_z,
     rect_hw: (Hr, Wr) rect-grid size fitted on the host to cover every
     pair's mapped ref image (rectify_pair rect_wh), or None for the legacy
     grid (H + 2 H//8, W + 2 W//8) of rectify_pair(margin_yx=rect_margins).
+    Each view's phases are mvs.solve.<phase> spans (_phase_spans).
     """
-    outs = [_solve_view_sweep(
-        ref[b], neigh[b], nvalid[b], T[b], tvec[b], ray_z[b], M_ref[b], M_nei[b],
-        H_fwd[b], e3[b], fB[b], w0[b], dw[b], init_depth[b], dmin[b], dmax[b],
-        ray_world[b], cam_rel[b], scalars, fw=fw, k=k, D=D, n_prop=n_prop,
-        n_refine=n_refine, n_plane_rounds=n_plane_rounds, use_local=use_local,
-        rect_hw=rect_hw, phase_times=phase_times)
-        for b in range(ref.shape[0])]
+    outs = []
+    for b in range(ref.shape[0]):
+        with _phase_spans(ref.device) as phase:
+            outs.append(_solve_view_sweep(
+                ref[b], neigh[b], nvalid[b], T[b], tvec[b], ray_z[b], M_ref[b], M_nei[b],
+                H_fwd[b], e3[b], fB[b], w0[b], dw[b], init_depth[b], dmin[b], dmax[b],
+                ray_world[b], cam_rel[b], scalars, fw=fw, k=k, D=D, n_prop=n_prop,
+                n_refine=n_refine, n_plane_rounds=n_plane_rounds, use_local=use_local,
+                rect_hw=rect_hw, phase=phase))
     return tuple(torch.stack(x) for x in zip(*outs))
+
+
+@contextlib.contextmanager
+def _phase_spans(device):
+    """Yields phase(name), which closes the open span of one view's solve
+    and opens mvs.solve.<name>, timed on `device`'s CUDA events (read after
+    _run_batch's read-back); the block's end closes the last."""
+    with contextlib.ExitStack() as open_span:
+        def phase(name):
+            open_span.close()
+            open_span.enter_context(span(f"mvs.solve.{name}", device=device))
+        yield phase
