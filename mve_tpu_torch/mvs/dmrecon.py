@@ -243,7 +243,9 @@ def _sweep_capable(p, s: Settings) -> bool:
 def _run_batch(prepared: list, s: Settings, device="cuda"):
     """Pad + stack prepared views, move them to the device once, run the
     solver and read the results back once (spans mvs.pack, mvs.upload, the
-    sweep solver's mvs.solve.<phase>, mvs.readback).
+    solver's mvs.solve.<phase> or mvs.solve.warp_<phase>, mvs.readback).
+    Counts the views by the solver they took (views_sweep, views_warp) in
+    the enclosing span.
 
     All views in `prepared` must agree on _sweep_capable. Returns
     (depth (B,H,W), conf, dz (B,H,W,2), n_accepted (B,)) numpy."""
@@ -252,6 +254,7 @@ def _run_batch(prepared: list, s: Settings, device="cuda"):
     dev = resolve_device(device)
     params, n_abs = _solver_params(s)
     sweep = _sweep_capable(prepared[0], s)
+    count("views_sweep" if sweep else "views_warp", len(prepared))
     host, rect_hw = _pack(prepared, s, sweep, n_abs)
     with span("mvs.upload"):
         count("bytes_h2d", sum(a.nbytes for a in host))

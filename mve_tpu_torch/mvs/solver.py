@@ -15,10 +15,14 @@ them reads a device value, so the host queues the whole view without
 waiting. The rectified sweep solver (sweep_solver.py) is the default;
 views whose neighbor pairs do not rectify come here.
 
-Neighbor sets are padded to a common J with a validity mask.
+Neighbor sets are padded to a common J with a validity mask. Each view's
+phases are mvs.solve.warp_<phase> spans (_phase_spans, which the sweep
+solver's mvs.solve.<phase> spans use too).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -27,6 +31,7 @@ from .patch import (_bilinear, _box_ncc, _combine_sel, _combine_topk, _gather_vi
 from .patch import _ref_stats as _ref_box_stats
 from .view_selection import (_cross3, _dot3, _greedy_select, _normalize3,
                              _parallax_weight)
+from ..utils.tracing import span
 
 
 # -----------------------------------------------------------------------
@@ -198,12 +203,25 @@ def _f32(values, device):
     return torch.tensor(values, dtype=torch.float32, device=device)
 
 
+@contextlib.contextmanager
+def _phase_spans(device):
+    """Yields phase(name), which closes the open span of one view's solve
+    and opens mvs.solve.<name>, timed on `device`'s CUDA events (read after
+    _run_batch's read-back); the block's end closes the last."""
+    with contextlib.ExitStack() as open_span:
+        def phase(name):
+            open_span.close()
+            open_span.enter_context(span(f"mvs.solve.{name}", device=device))
+        yield phase
+
+
 def _solve_view(ref, neigh, nvalid, T, tvec, ray_z, init_depth, dmin, dmax,
                 abs_planes, ray_world, cam_rel, scalars, *,
                 fw, k, n_prop, n_refine, n_plane_rounds, use_local, exact,
-                rel_factors):
+                rel_factors, phase):
     """One reference view end-to-end on the device. `scalars` = (4,)
-    float32 [min_ncc, min_parallax, accept_ncc, min_refine_diff]."""
+    float32 [min_ncc, min_parallax, accept_ncc, min_refine_diff].
+    phase(name): called at each phase's start (see _phase_spans)."""
     H, W = ref.shape
     dev = ref.device
     min_ncc, min_parallax, accept_ncc, min_refine_diff = (
@@ -233,6 +251,7 @@ def _solve_view(ref, neigh, nvalid, T, tvec, ray_z, init_depth, dmin, dmax,
                                sel, sel_valid, fw)
         return _combine_sel(ncc, ok)
 
+    phase("warp_sweep")
     # --- plane sweep: relative fan around the init + absolute planes.
     s0, k0 = score_all(init_depth[None])
     best = (init_depth, s0[0], k0[0])
@@ -240,6 +259,7 @@ def _solve_view(ref, neigh, nvalid, T, tvec, ray_z, init_depth, dmin, dmax,
     abs_stack = abs_planes[:, None, None].expand(abs_planes.shape[0], H, W)
     best = _chunked_best(score_all, torch.cat([rel_stack, abs_stack]), best, _CHUNK)
 
+    phase("warp_propagate")
     # --- local view selection state
     if use_local:
         def reselect(d):
@@ -276,6 +296,7 @@ def _solve_view(ref, neigh, nvalid, T, tvec, ray_z, init_depth, dmin, dmax,
         bd, bs, bk = _chunked_best(
             lambda ds: score_fn(ds, sel, sel_valid), cands, (bd, bs, bk), _CHUNK)
 
+    phase("warp_refine")
     # --- parabolic refinement (replaces Gauss-Newton depth steps)
     eps_ref = _f32([0.02 * (0.5 ** s) for s in range(max(n_refine, 1))], dev)
     for i in range(n_refine):
@@ -295,6 +316,7 @@ def _solve_view(ref, neigh, nvalid, T, tvec, ray_z, init_depth, dmin, dmax,
         bd, bs, bk = _chunked_best(lambda ds: score_fn(ds, sel, sel_valid),
                                    torch.stack([cand, d_lo, d_hi]), (bd, bs, bk), _CHUNK)
 
+    phase("warp_plane")
     # --- joint depth+normal (slanted plane) rounds
     def plane_score(ds, zxs, zys):
         if use_local:
@@ -362,6 +384,7 @@ def _solve_view(ref, neigh, nvalid, T, tvec, ray_z, init_depth, dmin, dmax,
     else:
         bzx, bzy = zeros, zeros
 
+    phase("warp_accept")
     bd = torch.clamp(bd, dmin * 0.5, dmax * 2.0)
 
     # --- final STRICT view selection at the converged depth: acceptance
@@ -403,12 +426,14 @@ def solve_batch(ref, neigh, nvalid, T, tvec, ray_z, init_depth, dmin, dmax,
     min_refine_diff].
     Returns (depth (B, H, W), conf (B, H, W), dz (B, H, W, 2),
     n_accepted (B,)).
+    Each view's phases are mvs.solve.warp_<phase> spans (_phase_spans).
     """
-    outs = [_solve_view(ref[b], neigh[b], nvalid[b], T[b], tvec[b], ray_z[b],
-                        init_depth[b], dmin[b], dmax[b], abs_planes[b],
-                        ray_world[b], cam_rel[b], scalars, fw=fw, k=k,
-                        n_prop=n_prop, n_refine=n_refine,
-                        n_plane_rounds=n_plane_rounds, use_local=use_local,
-                        exact=exact, rel_factors=rel_factors)
-            for b in range(ref.shape[0])]
+    outs = []
+    for b in range(ref.shape[0]):
+        with _phase_spans(ref.device) as phase:
+            outs.append(_solve_view(
+                ref[b], neigh[b], nvalid[b], T[b], tvec[b], ray_z[b], init_depth[b], dmin[b],
+                dmax[b], abs_planes[b], ray_world[b], cam_rel[b], scalars, fw=fw, k=k,
+                n_prop=n_prop, n_refine=n_refine, n_plane_rounds=n_plane_rounds,
+                use_local=use_local, exact=exact, rel_factors=rel_factors, phase=phase))
     return tuple(torch.stack(x) for x in zip(*outs))

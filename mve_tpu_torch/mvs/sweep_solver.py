@@ -38,17 +38,14 @@ value is read back to the host inside a view's solve.
 
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
 
 from .patch import _box_sum, _fma, _gather_views, _index, _plane_tap_sums, _recip
 from .solver import (_CHUNK, _chunked_best, _combine_sel, _combine_topk, _f32,
-                     _local_view_selection, _ncc_box_all, _pick, _plane_normals,
-                     _ref_box_stats, _reselect_with_fallback, _roll)
+                     _local_view_selection, _ncc_box_all, _phase_spans, _pick,
+                     _plane_normals, _ref_box_stats, _reselect_with_fallback, _roll)
 from .view_selection import _dot3
-from ..utils.tracing import span
 
 
 # -----------------------------------------------------------------------
@@ -664,15 +661,3 @@ def solve_batch_sweep(ref, neigh, nvalid, T, tvec, ray_z,
                 n_refine=n_refine, n_plane_rounds=n_plane_rounds, use_local=use_local,
                 rect_hw=rect_hw, phase=phase))
     return tuple(torch.stack(x) for x in zip(*outs))
-
-
-@contextlib.contextmanager
-def _phase_spans(device):
-    """Yields phase(name), which closes the open span of one view's solve
-    and opens mvs.solve.<name>, timed on `device`'s CUDA events (read after
-    _run_batch's read-back); the block's end closes the last."""
-    with contextlib.ExitStack() as open_span:
-        def phase(name):
-            open_span.close()
-            open_span.enter_context(span(f"mvs.solve.{name}", device=device))
-        yield phase

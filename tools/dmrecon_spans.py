@@ -8,7 +8,9 @@ Runs mvebench's traced run (`--trace 1`) in this process, prints its
 result line, then writes <out>/<cell>-<seed>.json and prints:
 - each span's self time (its time less its children's) per view;
 - the device time of each solver phase per view (the mvs.solve.<phase>
-  spans' CUDA events);
+  spans' CUDA events); where the mvs.solve spans count views of the warp
+  solver (views_warp), also each solver's phases over that solver's
+  views (the warp solver's are mvs.solve.warp_<phase>);
 - the window's idle seconds on the device by the innermost program span:
   each idle gap (as harness/trace.py forms them) split over the spans
   open during it, and, as device_idle_unattributed_pct.dmrecon and the
@@ -71,12 +73,31 @@ def tables(reduced, records, calls) -> dict:
     against = {name: [total_ms.get(name, 0.0), sum(c[key] for c in calls)]
                for name, key in timed.items()}
     bench_s = sum(b - a for a, b in reduced.spans.get("bench.call", [])) / 1e9
-    return {"views": views, "self_ms_per_view": self_ms, "device_ms_per_view": device_ms,
-            "counters_per_view": counters, "idle_s_split_by_innermost_span": idle_split,
-            "idle_s_at_midpoint_by_innermost_span": idle_mid,
-            "span_ms_against_last_timings": against,
-            "views_per_s_over_bench_calls": views / bench_s if bench_s else None,
-            "window_s": reduced.window_s, "busy_s": reduced.busy_s}
+    out = {"views": views, "self_ms_per_view": self_ms, "device_ms_per_view": device_ms,
+           "counters_per_view": counters, "idle_s_split_by_innermost_span": idle_split,
+           "idle_s_at_midpoint_by_innermost_span": idle_mid,
+           "span_ms_against_last_timings": against,
+           "views_per_s_over_bench_calls": views / bench_s if bench_s else None,
+           "window_s": reduced.window_s, "busy_s": reduced.busy_s}
+    by_solver = _phases_by_solver(recs)
+    if "warp" in by_solver:
+        out["device_ms_per_view_by_solver"] = by_solver
+    return out
+
+
+def _phases_by_solver(recs) -> dict:
+    """{solver: {phase span: device ms over the solver's views}}, the views
+    counted by the mvs.solve spans (views_sweep, views_warp)."""
+    views = {solver: sum(r.counters.get(f"views_{solver}", 0) for r in recs
+                         if r.name == "mvs.solve") for solver in ("sweep", "warp")}
+    out: dict = {}
+    for r in recs:
+        if r.name.startswith("mvs.solve.") and r.device_ms is not None:
+            solver = "warp" if r.name.startswith("mvs.solve.warp_") else "sweep"
+            if views[solver]:
+                phases = out.setdefault(solver, {})
+                phases[r.name] = phases.get(r.name, 0.0) + r.device_ms / views[solver]
+    return out
 
 
 def _self_intervals(recs) -> list:
