@@ -112,7 +112,9 @@ def _prepare_view(scene, s: Settings, views, positions, vis, full_sizes,
     """Host-side prep for one reference view: global view selection,
     level images, feature seeds, reprojection operators, ray geometry.
     device: the run's device, where level images that miss the cache are
-    built (ImagePyramidCache.get_level); the result is the same."""
+    built (ImagePyramidCache.get_level); the result is the same. The
+    images that miss are decoded together (ImagePyramidCache.prefetch),
+    their levels built in turn."""
     from .pyramid import ImagePyramidCache
     from .sweep_solver import rectify_pair
 
@@ -131,6 +133,7 @@ def _prepare_view(scene, s: Settings, views, positions, vis, full_sizes,
         raise RuntimeError(
             f"view {view_id}: only {len(selected)} neighbors selected")
 
+    ImagePyramidCache.prefetch(scene, [view_id] + selected, s.image_embedding, s.scale)
     ref_level = ImagePyramidCache.get_level(
         scene, view_id, s.image_embedding, s.scale, _to_gray, device=device)
     neigh_imgs = [ImagePyramidCache.get_level(scene, v, s.image_embedding,

@@ -12,14 +12,28 @@ indices, dx then dy, each product and sum rounded). The kernel itself is
 held to the numpy path by the test marked `chip`, which needs a card and
 imports no JAX: on the card, `python -m pytest --noconftest -m chip
 tests/test_torch_pyramid.py`.
+
+Prefetch: a view's missing images are decoded together on host threads
+(the decodes meet at a barrier that a serial decode never reaches), the
+levels and everything _prepare_view returns are bit-identical with and
+without it, a broken neighbour PNG raises what the inline decode raises
+with no decode left running, and images_prefetched counts the images
+that came from the pool.
 """
 
 import functools
+import os
+import shutil
+import threading
 
 import numpy as np
 import pytest
 import torch
 
+from mve_tpu_torch import synthetic
+from mve_tpu_torch.core import Bundle, Feature2D, Feature3D, Scene, View, image_io
+from mve_tpu_torch.mvs import Settings
+from mve_tpu_torch.mvs import dmrecon as mvs_dmrecon
 from mve_tpu_torch.mvs import pyramid as ppyr
 from mve_tpu_torch.mvs.dmrecon import _to_gray
 from mve_tpu_torch.utils import tracing
@@ -173,6 +187,172 @@ def test_cuda_path_takes_only_dmrecons_gray():
         ppyr.ImagePyramidCache.cleanup()
 
 
+N_VIEWS = 5
+
+
+@pytest.fixture(scope="module")
+def plane_scene(tmp_path_factory):
+    """An on-disk scene of N_VIEWS views of 96x72 (undistorted PNGs of the
+    two-plane render) and a bundle of 64 points on the far plane that
+    every view sees."""
+    path = str(tmp_path_factory.mktemp("prefetch") / "scene")
+    tex_far = synthetic.make_texture(seed=0, smooth_sigma=3.0)
+    tex_near = synthetic.make_texture(seed=100, smooth_sigma=3.0)
+    cams = synthetic.make_cameras(N_VIEWS, spread=0.55)
+    scene = Scene.create(path)
+    for i, cam in enumerate(cams):
+        view = View.create(scene.view_dir_for_id(i), i)
+        view.set_camera(cam)
+        view.set_image("undistorted",
+                       synthetic.render_two_plane_view(tex_far, tex_near, cam, 96, 72))
+        scene.add_view(view)
+    scene.save_views()
+    bundle = Bundle()
+    bundle.cameras = cams
+    g = np.linspace(-1.6, 1.6, 8)
+    for pi, (x, y) in enumerate((x, y) for x in g for y in g):
+        refs = [Feature2D(v, pi) for v in range(N_VIEWS)]
+        bundle.features.append(Feature3D(np.array([x, y, synthetic.PLANE_Z], np.float32),
+                                         np.full(3, 0.5, np.float32), refs))
+    scene.set_bundle(bundle)
+    scene.save_scene()
+    return path
+
+
+@pytest.fixture
+def fresh_cache():
+    ppyr.ImagePyramidCache.cleanup()
+    tracing.clear()
+    yield
+    tracing.clear()
+    ppyr.ImagePyramidCache.cleanup()
+
+
+def _levels(scene, ids, level, prefetch):
+    if prefetch:
+        ppyr.ImagePyramidCache.prefetch(scene, ids, "undistorted", level)
+    return [ppyr.ImagePyramidCache.get_level(scene, v, "undistorted", level, _to_gray)
+            for v in ids]
+
+
+def test_prefetched_decodes_overlap(plane_scene, fresh_cache, monkeypatch):
+    """Every decode of a view's misses waits at a barrier of min(misses,
+    CPUs) parties before it reads its file: a serial decode breaks it by
+    the timeout."""
+    ids = list(range(N_VIEWS))
+    barrier = threading.Barrier(min(len(ids), len(os.sched_getaffinity(0))), timeout=30)
+    load = image_io.load_image
+
+    def meeting_load(path):
+        barrier.wait()
+        return load(path)
+
+    monkeypatch.setattr(image_io, "load_image", meeting_load)
+    got = _levels(Scene(plane_scene), ids, 1, prefetch=True)
+    monkeypatch.setattr(image_io, "load_image", load)
+    ppyr.ImagePyramidCache.cleanup()
+    for a, b in zip(got, _levels(Scene(plane_scene), ids, 1, prefetch=False)):
+        _same_bits(a, b)
+
+
+@pytest.mark.parametrize("level", [0, 1])
+def test_prepared_views_are_bit_identical_with_prefetch(plane_scene, level, monkeypatch):
+    """_prepare_view of every view, each on a fresh cache and a newly
+    opened scene, with and without the prefetch: every array and number
+    it returns (the levels, and the operators in the order of the
+    selected neighbours) bit for bit."""
+    def prepare(view_id):
+        ppyr.ImagePyramidCache.cleanup()
+        scene = Scene(plane_scene)
+        s = Settings(scale=level)
+        views, positions, vis, full_sizes = mvs_dmrecon._scene_inputs(scene, s)
+        return mvs_dmrecon._prepare_view(scene, s, views, positions, vis, full_sizes,
+                                         view_id, "cpu")
+
+    def same(a, b):
+        if isinstance(a, dict):
+            assert a.keys() == b.keys()
+            for k in a:
+                same(a[k], b[k])
+        elif isinstance(a, (list, tuple)):
+            assert len(a) == len(b)
+            for x, y in zip(a, b):
+                same(x, y)
+        elif isinstance(a, np.ndarray):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))
+        else:
+            assert a == b
+
+    try:
+        for view_id in range(N_VIEWS):
+            with_prefetch = prepare(view_id)
+            assert with_prefetch["n_selected"] == N_VIEWS - 1
+            with monkeypatch.context() as mp:
+                mp.setattr(ppyr.ImagePyramidCache, "prefetch", lambda *a: None)
+                same(with_prefetch, prepare(view_id))
+    finally:
+        ppyr.ImagePyramidCache.cleanup()
+
+
+@pytest.mark.parametrize("fault", ["missing", "corrupt"])
+def test_a_broken_neighbour_raises_as_inline(plane_scene, fault, tmp_path, fresh_cache,
+                                             monkeypatch):
+    """Neighbour 1's PNG missing or corrupt: the prefetched load raises
+    the inline decode's exception (type and message) at that view, and
+    only after every other decode of the view has ended."""
+    path = str(tmp_path / "scene")
+    shutil.copytree(plane_scene, path)
+    # Both scenes list the PNG before it breaks.
+    inline_scene, scene = Scene(path), Scene(path)
+    png = os.path.join(scene.view_dir_for_id(1), "undistorted.png")
+    if fault == "missing":
+        os.unlink(png)
+    else:
+        with open(png, "wb") as f:
+            f.write(b"\\x89PNG\\r\\n\\x1a\\n not a PNG")
+    load = image_io.load_image
+
+    def slow_load(p):
+        if p != png:
+            threading.Event().wait(0.2)
+        return load(p)
+
+    monkeypatch.setattr(image_io, "load_image", slow_load)
+    ids = list(range(N_VIEWS))
+    with pytest.raises(Exception) as inline:
+        _levels(inline_scene, ids, 1, prefetch=False)
+    assert isinstance(inline.value, OSError)
+    ppyr.ImagePyramidCache.cleanup()
+    ppyr.ImagePyramidCache.prefetch(scene, ids, "undistorted", 1)
+    futures = list(ppyr.ImagePyramidCache._pending.values())
+    assert len(futures) == N_VIEWS
+    with pytest.raises(type(inline.value)) as prefetched:
+        _levels(scene, ids, 1, prefetch=False)
+    assert str(prefetched.value) == str(inline.value)
+    assert all(f.done() for f in futures) and not ppyr.ImagePyramidCache._pending
+
+
+def test_images_prefetched_counts_the_pools_images(plane_scene, fresh_cache):
+    """Three misses come from the pool; then a lone miss among four
+    hits is decoded inline; a repeated id is one miss."""
+    scene = Scene(plane_scene)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with tracing.span("test.outer"):
+            _levels(scene, [0, 1, 2, 1], 1, prefetch=True)
+        with tracing.span("test.outer"):
+            _levels(scene, [0, 1, 2, 3], 1, prefetch=True)
+    first, second = ([r for r in tracing.records() if r.call == outer.id]
+                     for outer in tracing.records() if outer.name == "test.outer")
+    for recs, decoded, prefetched, hits in ((first, 3, 3, 1), (second, 1, 0, 3)):
+        total = lambda key: sum(r.counters.get(key, 0) for r in recs)  # noqa: E731
+        loads = [r for r in recs if r.name == "mvs.load_level"]
+        assert len(loads) == decoded
+        assert all("images_prefetched" in r.counters for r in loads)
+        assert (total("images_decoded"), total("images_prefetched"),
+                total("level_hits")) == (decoded, prefetched, hits)
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -209,7 +389,21 @@ def test_kernel_is_the_numpy_path_on_the_card(card):
         recs = tracing.records()
         total = lambda key: sum(r.counters.get(key, 0) for r in recs)
         assert total("levels_built_on_device") == total("images_decoded") == 2
-        assert total("level_hits") == 1
+        assert total("level_hits") == 1 and total("images_prefetched") == 0
+        # Prefetched: the pool decodes, the card builds each level in turn.
+        imgs = [_image(kind, (37 + k, 53 - k), seed=4 + k) for k, kind in enumerate(KINDS)]
+        scene = _Scene(*imgs)
+        ppyr.ImagePyramidCache.cleanup()
+        tracing.clear()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            with tracing.span("test.outer"):
+                ppyr.ImagePyramidCache.prefetch(scene, range(len(imgs)), "undistorted", 2)
+                for view_id, img in enumerate(imgs):
+                    got = ppyr.ImagePyramidCache.get_level(scene, view_id, "undistorted", 2,
+                                                           _to_gray, device=card)
+                    _same_bits(got, _numpy_path(img, 2))
+        recs = tracing.records()
+        assert total("images_prefetched") == total("levels_built_on_device") == len(imgs)
     finally:
         tracing.clear()
         ppyr.ImagePyramidCache.cleanup()
