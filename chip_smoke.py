@@ -520,7 +520,7 @@ PCIE_BYTES_PER_S = 64e9
 
 def pyramid_numpy(img, level):
     """The level image as the CPU path builds it."""
-    out = mvs_dmrecon._to_gray(img)
+    out = mvs_pyramid._to_gray(img)
     for _ in range(level):
         out = mvs_pyramid.half_size_gaussian_np(out)
     return out

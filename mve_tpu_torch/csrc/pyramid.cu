@@ -4,7 +4,7 @@
 // Replaces no TPU kernel: mve_tpu builds level images in numpy on the
 // host (mve_tpu/mvs/pyramid.py), and the port's numpy path
 // (mve_tpu_torch/mvs/pyramid.py: half_size_gaussian_np applied `level`
-// times to mvs/dmrecon._to_gray) is this kernel's plain version. It was
+// times to _to_gray) is this kernel's plain version. It was
 // added because a level miss spent most of its time in float32 arithmetic
 // over full-resolution planes on the host (3072x2048 at fountain-P11).
 //

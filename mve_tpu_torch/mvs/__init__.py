@@ -11,7 +11,7 @@ best-scoring neighbor views):
 1. seed a dense depth map from the sparse SfM features,
 2. plane-sweep candidate depths per pixel, scored through per-pair
    rectified NCC tables (sweep_solver.py) or per-candidate warps
-   (solver.py),
+   (solver.py); both solvers run the rounds of rounds.py,
 3. iterate batched PatchMatch-style propagation (shifted-neighbor
    candidates) + parabolic sub-candidate refinement,
 4. confidence from final NCC with the reference's minNCC/acceptNCC

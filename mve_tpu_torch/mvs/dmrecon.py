@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import time
 
 import numpy as np
 import torch
@@ -26,6 +27,7 @@ from .. import resolve_device
 from ..core import image_tools
 from ..core.scene import Scene
 from ..utils.tracing import count, read_device_times, span
+from .pyramid import ImagePyramidCache, _to_gray, half_size_gaussian_np
 from .settings import Settings
 from .view_selection import global_view_selection
 
@@ -34,15 +36,6 @@ from .view_selection import global_view_selection
 # the mvs.prepare span, the mvs.solve spans and the mvs.write spans), and
 # the solver calls made. Read by chip_smoke.py and the benchmark.
 LAST_TIMINGS: dict = {}
-
-
-def _to_gray(img: np.ndarray) -> np.ndarray:
-    """Host-side gray conversion (mvs_tools desaturate-luminance)."""
-    f = image_tools.to_float(img)
-    if f.shape[2] >= 3:
-        return (0.30 * f[:, :, 0] + 0.59 * f[:, :, 1]
-                + 0.11 * f[:, :, 2]).astype(np.float32)
-    return f[:, :, 0]
 
 
 def _level_dims(w: int, h: int, level: int):
@@ -115,7 +108,6 @@ def _prepare_view(scene, s: Settings, views, positions, vis, full_sizes,
     built (ImagePyramidCache.get_level); the result is the same. The
     images that miss are decoded together (ImagePyramidCache.prefetch),
     their levels built in turn."""
-    from .pyramid import ImagePyramidCache
     from .sweep_solver import rectify_pair
 
     ref_view = views[view_id]
@@ -370,6 +362,38 @@ def _write_outputs(view, s: Settings, depth, conf, dz, img_full=None):
         view.set_image(f"undist-L{s.scale}", lvl_img)
 
 
+def _solve(chunk: list, s: Settings, dev, timings: dict):
+    """_run_batch on one batch in an mvs.solve span, the device idle at its
+    start; adds its wall time to timings["solve_ms"] and the batch to
+    timings["batches"]."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    with span("mvs.solve"):
+        t1 = time.perf_counter()
+        out = _run_batch(chunk, s, dev)
+        timings["solve_ms"] += 1e3 * (time.perf_counter() - t1)
+    H, W = chunk[0]["ref"].shape
+    timings["batches"].append((len(chunk), "sweep" if _sweep_capable(chunk[0], s) else "warp",
+                               H, W, max(p["T"].shape[0] for p in chunk)))
+    return out
+
+
+def _write(views, chunk: list, s: Settings, out, timings: dict, write_ply: bool) -> None:
+    """Each view's maps of a solved batch, and its PLY with write_ply or
+    s.write_ply_file, in an mvs.write span a view; adds their wall time to
+    timings["write_ms"]."""
+    depth, conf, dz, _ = out
+    for b, p in enumerate(chunk):
+        vid = p["view_id"]
+        sv = dataclasses.replace(s, ref_view_nr=vid)
+        with span("mvs.write"):
+            t2 = time.perf_counter()
+            _write_outputs(views[vid], sv, depth[b], conf[b], dz[b])
+            if write_ply or s.write_ply_file:
+                _write_ply_for(views[vid], sv, depth[b])
+            timings["write_ms"] += 1e3 * (time.perf_counter() - t2)
+
+
 def reconstruct_batch(scene: Scene, base: Settings, view_ids,
                       verbose: bool = True, write_ply: bool = False,
                       device="cuda"):
@@ -377,10 +401,7 @@ def reconstruct_batch(scene: Scene, base: Settings, view_ids,
 
     view_ids: iterable of (view_id, scale) pairs. Returns
     {view_id: filled_ratio}; failed views are reported and skipped."""
-    import time
-
     dev = resolve_device(device)
-    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     with span("mvs.prepare"):
         t0 = time.perf_counter()
         views, positions, vis, full_sizes = _scene_inputs(scene, base)
@@ -402,34 +423,19 @@ def reconstruct_batch(scene: Scene, base: Settings, view_ids,
         timings = dict(prepare_ms=1e3 * (time.perf_counter() - t0), solve_ms=0.0,
                        write_ms=0.0, batches=[])
 
-    for (scale, (H, W), cap), prepared in groups.items():
+    for (scale, (H, W), _), prepared in groups.items():
         s = dataclasses.replace(base, scale=scale)
-        Jmax = max(p["T"].shape[0] for p in prepared)
-        bsz = _batch_size_limit(H, W, Jmax, s)
+        bsz = _batch_size_limit(H, W, max(p["T"].shape[0] for p in prepared), s)
         for i in range(0, len(prepared), bsz):
             chunk = prepared[i : i + bsz]
-            sync()
-            with span("mvs.solve"):
-                t1 = time.perf_counter()
-                depth, conf, dz, n_acc = _run_batch(chunk, s, dev)
-                timings["solve_ms"] += 1e3 * (time.perf_counter() - t1)
+            out = _solve(chunk, s, dev, timings)
+            _write(views, chunk, s, out, timings, write_ply)
             for b, p in enumerate(chunk):
-                vid = p["view_id"]
-                view = views[vid]
-                with span("mvs.write"):
-                    t2 = time.perf_counter()
-                    _write_outputs(view, dataclasses.replace(s, ref_view_nr=vid),
-                                   depth[b], conf[b], dz[b])
-                    if write_ply or s.write_ply_file:
-                        _write_ply_for(view, dataclasses.replace(
-                            s, ref_view_nr=vid), depth[b])
-                    timings["write_ms"] += 1e3 * (time.perf_counter() - t2)
-                filled = float(n_acc[b]) / (H * W)
-                results[vid] = filled
+                filled = float(out[3][b]) / (H * W)
+                results[p["view_id"]] = filled
                 if verbose and not s.quiet:
-                    print(f"View {vid}: filled {100.0 * filled:.1f}% "
+                    print(f"View {p['view_id']}: filled {100.0 * filled:.1f}% "
                           f"({p['n_selected']} neighbors)")
-            timings["batches"].append((len(chunk), "sweep" if cap else "warp", H, W, Jmax))
     LAST_TIMINGS.clear()
     LAST_TIMINGS.update(timings)
     return results
@@ -468,33 +474,36 @@ class DMRecon:
         self.progress = Progress()
 
     def start(self) -> None:
+        """Reconstruct settings.ref_view_nr through reconstruct_batch's
+        steps and spans (LAST_TIMINGS too); raises where that reports and
+        skips a view."""
         from .progress import ReconStatus
 
         self.progress.begin()
         s = self.settings
-        scene = self.scene
+        with span("mvs.prepare"):
+            t0 = time.perf_counter()
+            self.progress.status = ReconStatus.GLOBALVS
+            self.progress.check_cancelled()
+            views, positions, vis, full_sizes = _scene_inputs(self.scene, s)
 
-        self.progress.status = ReconStatus.GLOBALVS
-        self.progress.check_cancelled()
-        views, positions, vis, full_sizes = _scene_inputs(scene, s)
-
-        self.progress.status = ReconStatus.FEATURES
-        self.progress.check_cancelled()
-        prep = _prepare_view(scene, s, views, positions, vis, full_sizes,
-                             s.ref_view_nr, self.device)
+            self.progress.status = ReconStatus.FEATURES
+            self.progress.check_cancelled()
+            prep = _prepare_view(self.scene, s, views, positions, vis, full_sizes,
+                                 s.ref_view_nr, self.device)
+            timings = dict(prepare_ms=1e3 * (time.perf_counter() - t0), solve_ms=0.0,
+                           write_ms=0.0, batches=[])
 
         self.progress.status = ReconStatus.QUEUE
         self.progress.check_cancelled()
-        depth, conf, dz, n_acc = _run_batch([prep], s, self.device)
+        out = _solve([prep], s, self.device, timings)
         H, W = prep["ref"].shape
-        self.filled_ratio = float(n_acc[0]) / (H * W)
-        self.progress.filled = int(n_acc[0])
+        self.filled_ratio = float(out[3][0]) / (H * W)
+        self.progress.filled = int(out[3][0])
         self.progress.status = ReconStatus.SAVING
-
-        ref_view = views[s.ref_view_nr]
-        _write_outputs(ref_view, s, depth[0], conf[0], dz[0])
-        if s.write_ply_file:
-            _write_ply_for(ref_view, s, depth[0])
+        _write(views, [prep], s, out, timings, write_ply=False)
+        LAST_TIMINGS.clear()
+        LAST_TIMINGS.update(timings)
         self.progress.status = ReconStatus.IDLE
         self.progress.queue_size = 0
         if not s.quiet:
@@ -504,8 +513,6 @@ class DMRecon:
 
 
 def _image_at_level_color(img: np.ndarray, level: int) -> np.ndarray:
-    from .pyramid import half_size_gaussian_np
-
     out = image_tools.to_float(img)
     for _ in range(level):
         out = half_size_gaussian_np(out)

@@ -33,6 +33,15 @@ from ..core import image_tools
 from ..utils.tracing import count, span
 
 
+def _to_gray(img: np.ndarray) -> np.ndarray:
+    """Host-side gray conversion (mvs_tools desaturate-luminance)."""
+    f = image_tools.to_float(img)
+    if f.shape[2] >= 3:
+        return (0.30 * f[:, :, 0] + 0.59 * f[:, :, 1]
+                + 0.11 * f[:, :, 2]).astype(np.float32)
+    return f[:, :, 0]
+
+
 def half_size_taps(dtype) -> np.ndarray:
     """The four normalised taps of a Gaussian half-size, in `dtype`."""
     sigma2 = 2.0  # sigma = sqrt(1), 2*sigma^2
@@ -148,7 +157,7 @@ class ImagePyramidCache:
         device: where a miss is built. On the CPU, with numpy, from the
         view's cached gray plane and coarser levels. On a CUDA device, by
         the kernels of ops/pyramid.py from the decoded image, which then
-        compute dmrecon's `_to_gray` (the only `to_gray` they take); only
+        compute `_to_gray` (the only `to_gray` they take); only
         the requested level comes back to the host and is cached."""
         with cls._lock:
             cls._select(scene, embedding)
@@ -168,7 +177,6 @@ class ImagePyramidCache:
     @classmethod
     def _build_on_host(cls, scene, view_id, embedding, level, to_gray):
         with span("mvs.load_level"):
-            # Build from the nearest cached coarser... simplest: from level 0.
             with cls._lock:
                 base = cls._levels.get((view_id, 0))
             if base is None:
@@ -191,10 +199,9 @@ class ImagePyramidCache:
     @classmethod
     def _build_on_device(cls, scene, view_id, embedding, level, to_gray, device):
         from ..ops import pyramid as pyramid_ops
-        from .dmrecon import _to_gray
 
         if to_gray is not _to_gray:
-            raise ValueError("the CUDA level build computes dmrecon's _to_gray; "
+            raise ValueError("the CUDA level build computes _to_gray; "
                              "build other gray conversions with device='cpu'")
         with span("mvs.load_level"):
             image = cls._decode(scene, view_id, embedding)

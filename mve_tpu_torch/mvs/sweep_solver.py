@@ -17,11 +17,11 @@ once per pair instead:
 3. **Re-index** the cube to reference pixels: the rectified coordinates
    of a reference pixel are fixed per pair, so the cube maps back with
    4 corner row-gathers of D-vectors -> per-pixel NCC-vs-plane tables.
-4. **Optimize** like the warp solver (plane sweep init, local view
-   selection, PatchMatch propagation, parabolic refinement,
-   slanted-plane rounds) — but every score is a 2-tap interpolation
-   along the table's D axis: a gather of the two bf16 table entries,
-   widened to float32 (mve_tpu computes the same values as one-hot bf16
+4. **Optimize** with the rounds both solvers share (rounds.py: plane
+   sweep init, local view selection, PatchMatch propagation, parabolic
+   refinement, slanted-plane rounds) — but every score is a 2-tap
+   interpolation along the table's D axis: a gather of the two bf16
+   table entries, widened to float32 (mve_tpu computes the same values as one-hot bf16
    contractions, which suit the TPU's matrix unit; with 0/1 weights and
    float32 accumulation the two agree bit for bit).
 5. **Exact rescore** of the converged depth with true-warp NCC passes so
@@ -41,10 +41,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .patch import _box_sum, _fma, _gather_views, _index, _plane_tap_sums, _recip
-from .solver import (_CHUNK, _chunked_best, _combine_sel, _combine_topk, _f32,
-                     _local_view_selection, _ncc_box_all, _phase_spans, _pick,
-                     _plane_normals, _ref_box_stats, _reselect_with_fallback, _roll)
+from .patch import (_box_sum, _combine_sel, _combine_topk, _fma, _gather_views, _index,
+                    _plane_tap_sums, _recip)
+from .rounds import (_accept, _local_view_selection, _ncc_box_all, _pick, _plane_rounds,
+                     _propagate, _ref_box_stats, _refine, _reselect_with_fallback, _roll,
+                     _solve_views, _start_selection, _sweep_start)
 from .view_selection import _dot3
 
 
@@ -322,13 +323,11 @@ def _solve_view_sweep(ref, neigh, nvalid, T, tvec, ray_z,
                       rect_hw=None, phase):
     """One reference view end-to-end with table-lookup scoring.
 
-    phase(name): called at each phase's start (see _phase_spans)."""
+    phase(name): called at each phase's start (see rounds._phase_spans)."""
     H, W = ref.shape
     J = neigh.shape[0]
     dev = ref.device
-    min_ncc, min_parallax, accept_ncc, min_refine_diff = (
-        scalars[0], scalars[1], scalars[2], scalars[3])
-    zeros = torch.zeros_like(init_depth)
+    min_ncc, min_parallax, accept_ncc, min_refine_diff = scalars
 
     phase("cube")
     # --- per-pair tables (rectify -> sweep -> reindex)
@@ -352,118 +351,30 @@ def _solve_view_sweep(ref, neigh, nvalid, T, tvec, ray_z,
         ncc, ok = _lookup(tab, c_j, w0, dw, nvalid, L)
         return _combine_topk(ncc, ok, k)
 
-    def score_sel_fn(L, sel, sel_valid):
+    def score_sel(L, sel, sel_valid):
         ncc, ok = _lookup(tab, c_j, w0, dw, nvalid, L)
         return _select_views(ncc, ok, sel, sel_valid)
 
+    def reselect(d):
+        ncc, _ = _lookup(tab, c_j, w0, dw, nvalid, d[None])
+        return _local_view_selection(ncc[:, 0], nvalid, d, ray_world, cam_rel, k,
+                                     min_ncc, min_parallax)
+
     phase("lookup")
-    # --- plane sweep init: D_sweep ray-length planes + the seed field
-    s0, k0 = score_all(init_depth[None])
-    best = (init_depth, s0[0], k0[0])
-    n_sweep = D
+    # --- plane sweep init: D ray-length planes + the seed field
     lds = torch.exp(_linspace(torch.log(torch.clamp(dmin, min=1e-6)),
-                              torch.log(torch.clamp(dmax, min=2e-6)), n_sweep))
-    abs_stack = lds[:, None, None].expand(n_sweep, H, W)
-    rel_stack = torch.stack([init_depth * f for f in
-                             (0.85, 0.93, 1.0 / 0.93, 1.0 / 0.85)])
-    best = _chunked_best(score_all, torch.cat([rel_stack, abs_stack]), best, _CHUNK)
-
-    # --- local view selection
-    if use_local:
-        def reselect(d):
-            ncc, _ = _lookup(tab, c_j, w0, dw, nvalid, d[None])
-            return _local_view_selection(
-                ncc[:, 0], nvalid, d, ray_world, cam_rel, k,
-                min_ncc, min_parallax)
-
-        sel, sel_valid = reselect(best[0])
-        s1, k1 = score_sel_fn(best[0][None], sel, sel_valid)
-        best = (best[0], s1[0], k1[0])
-        score_fn = score_sel_fn
-    else:
-        sel = torch.zeros((k, H, W), dtype=torch.int64, device=dev)
-        sel_valid = torch.zeros((k, H, W), dtype=torch.bool, device=dev)
-
-        def score_fn(L, sel, sel_valid):
-            return score_all(L)
-
-    # --- PatchMatch propagation rounds
-    shifts = ((0, 1), (0, -1), (1, 0), (-1, 0), (0, 3), (3, 0), (0, -3), (-3, 0))
-    eps_prop = _f32([0.05 * (0.5 ** it) for it in range(max(n_prop, 1))], dev)
-    half = n_prop // 2
-    bd, bs, bk = best
-    for it in range(n_prop):
-        eps = eps_prop[it]
-        if use_local and it == half:
-            sel, sel_valid = reselect(bd)
-            s2, k2 = score_sel_fn(bd[None], sel, sel_valid)
-            bs, bk = s2[0], k2[0]
-        cands = torch.stack([_roll(bd, dy, dx) for dy, dx in shifts]
-                            + [bd * (1.0 - eps), bd * (1.0 + eps)])
-        bd, bs, bk = _chunked_best(
-            lambda L: score_fn(L, sel, sel_valid), cands, (bd, bs, bk), _CHUNK)
-
-    # --- parabolic refinement
-    eps_ref = _f32([0.02 * (0.5 ** s) for s in range(max(n_refine, 1))], dev)
-    for i in range(n_refine):
-        eps = eps_ref[i]
-        d_lo = bd * (1.0 - eps)
-        d_hi = bd * (1.0 + eps)
-        both, _ = score_fn(torch.stack([d_lo, d_hi]), sel, sel_valid)
-        s_lo, s_hi = both[0], both[1]
-        denom = s_lo - 2.0 * bs + s_hi
-        offset = torch.where(
-            torch.abs(denom) > 1e-12,
-            torch.clamp(0.5 * (s_lo - s_hi)
-                        / torch.where(torch.abs(denom) < 1e-12, 1e-12, denom),
-                        -1.0, 1.0),
-            0.0)
-        cand = bd * (1.0 + offset * eps)
-        bd, bs, bk = _chunked_best(lambda L: score_fn(L, sel, sel_valid),
-                                   torch.stack([cand, d_lo, d_hi]), (bd, bs, bk), _CHUNK)
-
-    # --- slanted-plane rounds: plane parametrization for propagation,
-    # lookup scoring through the per-pixel depth field.
-    if n_plane_rounds > 0:
-        slope_cap = 0.05 * torch.clamp(bd, min=1e-6)
-        bzx = torch.clamp((_roll(bd, 0, -1) - _roll(bd, 0, 1)) * 0.5, -slope_cap, slope_cap)
-        bzy = torch.clamp((_roll(bd, -1, 0) - _roll(bd, 1, 0)) * 0.5, -slope_cap, slope_cap)
-        eps_pl = _f32([0.3 * (0.5 ** r) for r in range(n_plane_rounds)], dev)
-        state = (bd, bzx, bzy, bs, bk)
-        prev_mean = torch.tensor(-1e31, dtype=torch.float32, device=dev)
-        done = torch.tensor(False, device=dev)
-        for r in range(n_plane_rounds):
-            eps = eps_pl[r]
-            sd, szx, szy, ss, sk = state
-            cap = 0.05 * torch.clamp(sd, min=1e-6)
-            step = eps * torch.clamp(sd, min=1e-6) * 0.02
-            cands, czx, czy = [], [], []
-            for dy, dx in ((0, 1), (0, -1), (1, 0), (-1, 0)):
-                nd = _roll(sd, dy, dx)
-                nzx = _roll(szx, dy, dx)
-                nzy = _roll(szy, dy, dx)
-                cands.append(nd + dx * nzx + dy * nzy)
-                czx.append(nzx)
-                czy.append(nzy)
-            for dd, zx, zy in ((0.0, step, None), (0.0, -step, None),
-                               (0.0, None, step), (0.0, None, -step),
-                               (-1.0, None, None), (1.0, None, None)):
-                cands.append(sd + dd * step)
-                czx.append(torch.clamp(szx + zx, -cap, cap) if zx is not None else szx)
-                czy.append(torch.clamp(szy + zy, -cap, cap) if zy is not None else szy)
-            ds = torch.stack(cands)
-            cs, ck = score_fn(ds, sel, sel_valid)
-            all_s = torch.cat([ss[None], cs])
-            new_state = _pick(all_s, torch.cat([sd[None], ds]),
-                              torch.cat([szx[None], torch.stack(czx)]),
-                              torch.cat([szy[None], torch.stack(czy)]), all_s,
-                              torch.cat([sk[None], ck]))
-            mean_s = torch.mean(torch.clamp(new_state[3], min=0.0))
-            state = tuple(torch.where(done, old, new) for old, new in zip(state, new_state))
-            prev_ok = prev_mean > -1e30
-            done = done | (prev_ok & (mean_s - prev_mean < min_refine_diff))
-            prev_mean = torch.where(done, prev_mean, mean_s)
-        bd, bzx, bzy, bs, bk = state
+                              torch.log(torch.clamp(dmax, min=2e-6)), D))
+    best = _sweep_start(score_all, init_depth, (0.85, 0.93, 1.0 / 0.93, 1.0 / 0.85), lds)
+    score_fn, sel, sel_valid, best = _start_selection(best, score_all, score_sel,
+                                                      reselect, use_local, k)
+    best, sel, sel_valid = _propagate(best, score_fn, reselect, sel, sel_valid,
+                                      n_prop, use_local)
+    best = _refine(best, score_fn, sel, sel_valid, n_refine)
+    # Slanted-plane rounds: the plane parametrization for propagation,
+    # lookup scoring through the per-pixel depth field (the slopes are
+    # not scored).
+    bd = _plane_rounds(best, lambda ds, zxs, zys, sel, sel_valid: score_fn(ds, sel, sel_valid),
+                       sel, sel_valid, n_plane_rounds, min_refine_diff, pick_slopes=False)[0]
     del tab
 
     bd = torch.clamp(bd, dmin * 0.5, dmax * 2.0)
@@ -486,32 +397,34 @@ def _solve_view_sweep(ref, neigh, nvalid, T, tvec, ray_z,
             return _select_views(ncc_x, ok_x, sel, sel_valid)
         return _combine_topk(ncc_x, ok_x, k)
 
+    def exact_select(d, select):
+        """select (the strict selection, or it with its loose fallback)
+        on the exact NCC at depth d."""
+        ncc_x, _ = exact_all(d[None])
+        return select(ncc_x[:, 0], nvalid, d, ray_world, cam_rel, k, min_ncc, min_parallax)
+
+    def exact_best(d):
+        s_now, k_now = score_exact(d[None])
+        return s_now[0], k_now[0]
+
     # Reselect views from EXACT NCC first (loose fallback): pixels whose
     # rect tables were partially invalid (off-grid taps, shift margins)
     # but whose TRUE warps are fine — borders, mostly — regain their
     # views here and can participate in the exact rounds below.
     if use_local:
-        ncc_x0, _ = exact_all(bd[None])
-        sel, sel_valid = _reselect_with_fallback(
-            ncc_x0[:, 0], nvalid, bd, ray_world, cam_rel, k,
-            min_ncc, min_parallax)
+        sel, sel_valid = exact_select(bd, _reselect_with_fallback)
 
     # Exact PatchMatch rounds: true-warp region growing into pixels the
     # table phase could not score (occlusion bands, image borders) — the
     # batched analog of the reference's sequential growing
     # (dmrecon.cc:334-434 processQueue).
-    s_now, k_now = score_exact(bd[None])
-    bs, bk = s_now[0], k_now[0]
+    bs, bk = exact_best(bd)
     for rnd in range(3):
         if use_local and rnd:
             # Refresh the loose selection at the improved depth: stale
             # selections block depths just propagated from neighbors.
-            ncc_xr, _ = exact_all(bd[None])
-            sel, sel_valid = _reselect_with_fallback(
-                ncc_xr[:, 0], nvalid, bd, ray_world, cam_rel, k,
-                min_ncc, min_parallax)
-            s_now, k_now = score_exact(bd[None])
-            bs, bk = s_now[0], k_now[0]
+            sel, sel_valid = exact_select(bd, _reselect_with_fallback)
+            bs, bk = exact_best(bd)
         cands = torch.stack(
             [_roll(bd, dy, dx) for dy, dx in ((0, 1), (0, -1), (1, 0), (-1, 0),
                                               (0, 3), (0, -3), (3, 0), (-3, 0))])
@@ -523,12 +436,8 @@ def _solve_view_sweep(ref, neigh, nvalid, T, tvec, ray_z,
     # Final STRICT selection at the converged depth for acceptance
     # (local_view_selection.cc success semantics).
     if use_local:
-        ncc_xf, _ = exact_all(bd[None])
-        sel, sel_valid = _local_view_selection(
-            ncc_xf[:, 0], nvalid, bd, ray_world, cam_rel, k,
-            min_ncc, min_parallax)
-    s_now, k_now = score_exact(bd[None])
-    bs, bk = s_now[0], k_now[0]
+        sel, sel_valid = exact_select(bd, _local_view_selection)
+    bs, bk = exact_best(bd)
     # Three parabolic polish rounds: the lookup phase's piecewise-linear
     # scores snap depths to inverse-depth plane nodes (up to ~4-5%
     # relative at the far end of a D=64 table), so the exact polish must
@@ -616,12 +525,6 @@ def _solve_view_sweep(ref, neigh, nvalid, T, tvec, ray_z,
         bs = torch.maximum(bs, select_and_mean(ncc_pl, bd))
 
     phase("accept")
-    # --- confidence + acceptance (patch_optimization.cc:120-142): the
-    # reference's score is (MEAN selected NCC - acceptNCC)/(1 - accept).
-    conf = torch.clamp((bs - accept_ncc) / (1.0 - accept_ncc), min=0.0)
-    normal = _plane_normals(bd, bzx, bzy, ray_world, fw // 2)
-    dotp = -_dot3(normal, ray_world)
-    conf = torch.where(dotp >= 0.2, conf, 0.0)
     # Master-patch in-bounds requirement (patch_sampler.cc
     # computeMasterSamples): the reference never reconstructs pixels
     # whose window leaves the reference image.
@@ -629,11 +532,7 @@ def _solve_view_sweep(ref, neigh, nvalid, T, tvec, ray_z,
     yy = torch.arange(H, device=dev)[:, None]
     xx = torch.arange(W, device=dev)[None, :]
     in_master = (yy >= r_b) & (yy < H - r_b) & (xx >= r_b) & (xx < W - r_b)
-    conf = torch.where(in_master, conf, 0.0)
-    accepted = conf > 0.0
-    depth_out = torch.where(accepted, bd, 0.0)
-    dz_out = torch.where(accepted[..., None], torch.stack([bzx, bzy], dim=-1), 0.0)
-    return depth_out, conf, dz_out, accepted.sum()
+    return _accept(bd, bzx, bzy, bs, ray_world, accept_ncc, fw, allowed=in_master)
 
 
 def solve_batch_sweep(ref, neigh, nvalid, T, tvec, ray_z,
@@ -649,15 +548,10 @@ def solve_batch_sweep(ref, neigh, nvalid, T, tvec, ray_z,
     rect_hw: (Hr, Wr) rect-grid size fitted on the host to cover every
     pair's mapped ref image (rectify_pair rect_wh), or None for the legacy
     grid (H + 2 H//8, W + 2 W//8) of rectify_pair(margin_yx=rect_margins).
-    Each view's phases are mvs.solve.<phase> spans (_phase_spans).
+    Each view's phases are mvs.solve.<phase> spans (rounds._phase_spans).
     """
-    outs = []
-    for b in range(ref.shape[0]):
-        with _phase_spans(ref.device) as phase:
-            outs.append(_solve_view_sweep(
-                ref[b], neigh[b], nvalid[b], T[b], tvec[b], ray_z[b], M_ref[b], M_nei[b],
-                H_fwd[b], e3[b], fB[b], w0[b], dw[b], init_depth[b], dmin[b], dmax[b],
-                ray_world[b], cam_rel[b], scalars, fw=fw, k=k, D=D, n_prop=n_prop,
-                n_refine=n_refine, n_plane_rounds=n_plane_rounds, use_local=use_local,
-                rect_hw=rect_hw, phase=phase))
-    return tuple(torch.stack(x) for x in zip(*outs))
+    return _solve_views(
+        _solve_view_sweep, (ref, neigh, nvalid, T, tvec, ray_z, M_ref, M_nei, H_fwd, e3, fB,
+                            w0, dw, init_depth, dmin, dmax, ray_world, cam_rel), scalars,
+        fw=fw, k=k, D=D, n_prop=n_prop, n_refine=n_refine, n_plane_rounds=n_plane_rounds,
+        use_local=use_local, rect_hw=rect_hw)

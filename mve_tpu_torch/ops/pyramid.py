@@ -2,7 +2,7 @@
 
 They replace no TPU kernel: mve_tpu builds MVS level images in numpy on
 the host, and that numpy path (mvs/pyramid.half_size_gaussian_np applied
-`level` times to mvs/dmrecon._to_gray) is the plain version, run by
+`level` times to mvs/pyramid._to_gray) is the plain version, run by
 mvs/pyramid.ImagePyramidCache for a CPU device. A CUDA tensor launches the
 kernels or raises. `launches` counts kernel launches, so a run can show
 that its level images went through the kernels.

@@ -58,10 +58,10 @@ DEPARTURES = {
         "CHANGES.md: fssr/iso_octree drops the pair_chunk option"),
     ("mvs/solver.py", "solve_batch", "keyword chunk"): (
         "candidates scored at a time, a memory bound no caller sets; the "
-        "port keeps it the constant solver._CHUNK (8, mve_tpu's default)", _ROADMAP),
+        "port keeps it the constant rounds._CHUNK (8, mve_tpu's default)", _ROADMAP),
     ("mvs/sweep_solver.py", "solve_batch_sweep", "keyword chunk"): (
         "candidates scored at a time, a memory bound no caller sets; the "
-        "port keeps it the constant solver._CHUNK (8, mve_tpu's default)", _ROADMAP),
+        "port keeps it the constant rounds._CHUNK (8, mve_tpu's default)", _ROADMAP),
     ("sfm/ba/core.py", "solve_cameras_only", "keyword Jc"): (
         "unused in mve_tpu too: with the points fixed the system is B; the "
         "port takes (B, v, trr)", _ROADMAP),

@@ -7,7 +7,8 @@ depth difference on pixels both accept below 0.005; the same embedding
 names, shapes and dtypes; undist-L1 identical. Each package reads the
 other's MVEI files. --master-view, --force and skipping existing depth
 maps, DMRecon's progress and cancellation behave alike, and the entry
-points default to the card.
+points default to the card. DMRecon.start on one view writes what
+reconstruct_batch writes for it, bit for bit, under the same spans.
 """
 
 import dataclasses
@@ -32,6 +33,7 @@ from mve_tpu_torch.interop import mvs_settings_from_dict
 from mve_tpu_torch.mvs import DMRecon
 from mve_tpu_torch.mvs import dmrecon as pdm
 from mve_tpu_torch.mvs.progress import ReconStatus
+from mve_tpu_torch.utils import tracing
 
 from tests.synthetic import make_plane_scene
 
@@ -132,6 +134,41 @@ def test_dmrecon_progress_and_cancel(runs):
         with pytest.raises(RuntimeError, match="cancelled"):
             recon.start()
         assert recon.progress.status == status.CANCELLED
+
+
+def test_start_is_reconstruct_batch_of_one_view(runs):
+    """DMRecon.start writes the same depth, confidence and dz maps as
+    reconstruct_batch on that view, bit for bit, and opens the same
+    spans: mvs.prepare, one mvs.solve, mvs.write; it sets LAST_TIMINGS."""
+    root = runs[0]
+    s = pdm.Settings(ref_view_nr=3, scale=1, quiet=True)
+    recon = DMRecon(Scene(str(root / "fresh")), s, device="cpu")
+    pdm.LAST_TIMINGS.clear()
+    tracing.clear()
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            recon.start()
+        recs = list(tracing.records())
+    finally:
+        tracing.clear()
+    timings = dict(pdm.LAST_TIMINGS)
+    scene = Scene(str(root / "fresh"))
+    fills = pdm.reconstruct_batch(scene, s, [(3, 1)], verbose=False, device="cpu")
+    assert fills == {3: recon.filled_ratio} and recon.filled_ratio > 0.3
+    for name in ("depth-L1", "conf-L1", "dz-L1"):
+        a = recon.scene.get_views()[3].get_image(name)
+        b = scene.get_views()[3].get_image(name)
+        assert a.dtype == b.dtype and np.array_equal(a, b), name
+    # The outermost of these records: a span another test left open on
+    # this thread would be their parent.
+    ids = {r.id for r in recs}
+    top = [r.name for r in sorted(recs, key=lambda r: r.start_ns) if r.parent not in ids]
+    assert top == ["mvs.prepare", "mvs.solve", "mvs.write"]
+    (solve,) = [r for r in recs if r.name == "mvs.solve"]
+    assert solve.counters.get("views_sweep") == 1
+    assert set(timings) == {"prepare_ms", "solve_ms", "write_ms", "batches"}
+    assert all(timings[k] > 0 for k in ("prepare_ms", "solve_ms", "write_ms"))
+    assert [b[:4] for b in timings["batches"]] == [(1, "sweep", 72, 96)]
 
 
 def test_write_ply_like_mve_tpu(runs, tmp_path):

@@ -47,7 +47,7 @@ from mve_tpu.mvs.settings import Settings as JSettings
 from mve_tpu_torch.core import Scene
 from mve_tpu_torch.interop import mvs_settings_from_dict
 from mve_tpu_torch.mvs import dmrecon as pdm, patch as ppatch, pyramid as ppyr
-from mve_tpu_torch.mvs import solver as psolver, sweep_solver as psweep
+from mve_tpu_torch.mvs import rounds as prounds, solver as psolver, sweep_solver as psweep
 from mve_tpu_torch.mvs import view_selection as pvs
 
 from tests.synthetic import PLANE_Z, make_plane_scene, make_texture, render_view
@@ -317,8 +317,8 @@ def test_corner_indices_survive_nan_and_inf(textured):
     assert not bool(inb[:, 0, 3, 4].any()) and not bool(inb[:, 0, 7, 8].any())
     depths = T(t["depth"][:1].copy())
     depths[0, 3, 4] = float("nan")
-    rs = psolver._ref_box_stats(T(t["ref"]), FW)
-    ncc, ok = psolver._ncc_box_all(T(t["ref"]), rs, T(t["neigh"]), T(t["nvalid"]), T(p["T"]),
+    rs = prounds._ref_box_stats(T(t["ref"]), FW)
+    ncc, ok = prounds._ncc_box_all(T(t["ref"]), rs, T(t["neigh"]), T(t["nvalid"]), T(p["T"]),
                                    T(p["tvec"]), T(p["ray_z"]), depths, FW)
     assert not bool(ok[:, 0, 3, 4].any()) and bool(torch.isfinite(ncc).all())
     tab = torch.zeros((J, H, W, 8), dtype=torch.bfloat16)
@@ -331,13 +331,13 @@ def test_corner_indices_survive_nan_and_inf(textured):
 def test_ncc_box_all_and_sel(textured):
     t, p = textured, textured["p"]
     jr = jax.jit(lambda r: jsolver._ref_box_stats(r, FW))(t["ref"])
-    pr = psolver._ref_box_stats(T(t["ref"]), FW)
+    pr = prounds._ref_box_stats(T(t["ref"]), FW)
     for a, b in zip(jr, pr):
         np.testing.assert_allclose(b.numpy(), N(a), rtol=0, atol=1e-5)
     geo = (p["T"], p["tvec"], p["ray_z"], t["depth"])
     want = jax.jit(lambda r, rs, n, nv, *g: jsolver._ncc_box_all(r, rs, n, nv, *g, FW))(
         t["ref"], jr, t["neigh"], t["nvalid"], *geo)
-    got = psolver._ncc_box_all(T(t["ref"]), pr, T(t["neigh"]), T(t["nvalid"]), *(T(g) for g in geo), FW)
+    got = prounds._ncc_box_all(T(t["ref"]), pr, T(t["neigh"]), T(t["nvalid"]), *(T(g) for g in geo), FW)
     np.testing.assert_allclose(got[0].numpy(), N(want[0]), rtol=0, atol=1e-4)
     assert np.array_equal(got[1].numpy(), N(want[1]))
     want = jax.jit(lambda r, rs, n, *g: jsolver._ncc_box_sel(r, rs, n, *g, FW))(
@@ -359,8 +359,8 @@ def test_plane_ncc(textured):
         np.testing.assert_allclose(g.numpy(), N(w), rtol=0, atol=1e-5)
     want = jax.jit(lambda r, n, *g: jsolver._ncc_plane_sel(r, n, *g, FW))(
         t["ref"], t["neigh"], *geo, t["sel"], t["sel_valid"])
-    got = psolver._ncc_plane_sel(T(t["ref"]), T(t["neigh"]), *(T(g) for g in geo),
-                                 T(t["sel"]), T(t["sel_valid"]), FW)
+    got = ppatch.ncc_score_plane_sel(T(t["ref"]), T(t["neigh"]), *(T(g) for g in geo),
+                                     T(t["sel"]), T(t["sel_valid"]), FW)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), N(w), rtol=0, atol=1e-5)
 
@@ -372,11 +372,11 @@ def test_combine(textured):
     ok = rng.rand(5, 3, 8, 9) < 0.8
     for k in (2, 4, 7):
         want = jax.jit(lambda a, o: jsolver._combine_topk(a, o, k))(ncc, ok)
-        got = psolver._combine_topk(T(ncc), T(ok), k)
+        got = ppatch._combine_topk(T(ncc), T(ok), k)
         for g, w in zip(got, want):
             np.testing.assert_allclose(g.numpy(), N(w), rtol=0, atol=1e-5)
     want = jax.jit(jsolver._combine_sel)(ncc, ok)
-    got = psolver._combine_sel(T(ncc), T(ok))
+    got = ppatch._combine_sel(T(ncc), T(ok))
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), N(w), rtol=0, atol=1e-5)
 
@@ -395,17 +395,17 @@ def test_view_selection(textured):
     args = (ncc, t["nvalid"], d, p["ray_world"], p["cam_rel"])
     for name in ("_local_view_selection", "_reselect_with_fallback"):
         want = jax.jit(lambda *a: getattr(jsolver, name)(*a, 4, sc[0], sc[1]))(*args)
-        got = getattr(psolver, name)(*(T(a) for a in args), 4, T(sc)[0], T(sc)[1])
+        got = getattr(prounds, name)(*(T(a) for a in args), 4, T(sc)[0], T(sc)[1])
         assert np.array_equal(got[1].numpy(), N(want[1]))
         same = got[0].numpy() == N(want[0])
         # A selection can only differ where two weights tie to the last
         # bit after exp/arccos, which the two libraries round apart.
         assert same.mean() >= 0.999, f"{name}: {same.mean():.5f}"
     want = jax.jit(lambda *a: jsolver._topk_views(*a, 3))(ncc, t["nvalid"])
-    got = psolver._topk_views(T(ncc), T(t["nvalid"]), 3)
+    got = prounds._topk_views(T(ncc), T(t["nvalid"]), 3)
     assert np.array_equal(got[0].numpy(), N(want[0])) and np.array_equal(got[1].numpy(), N(want[1]))
     want = jax.jit(lambda *a: jsolver._plane_normals(*a, 2))(d, t["dzx"][0], t["dzy"][0], p["ray_world"])
-    got = psolver._plane_normals(T(d), T(t["dzx"][0]), T(t["dzy"][0]), T(p["ray_world"]), 2)
+    got = prounds._plane_normals(T(d), T(t["dzx"][0]), T(t["dzy"][0]), T(p["ray_world"]), 2)
     np.testing.assert_allclose(got.numpy(), N(want), rtol=0, atol=1e-5)
 
 
@@ -528,16 +528,14 @@ def test_solve_batch_sweep_legacy_grid(scenes, plane_prep):
 
 @pytest.mark.parametrize("solver", ["sweep", "warp"])
 def test_chunk_bounds_memory_only(scenes, plane_prep, monkeypatch, solver):
-    """The candidates scored at a time (solver._CHUNK, mve_tpu's `chunk`
+    """The candidates scored at a time (rounds._CHUNK, mve_tpu's `chunk`
     keyword, a stated departure) change no result of either solver."""
     if solver == "sweep":
         _, _, ps, pp = plane_prep
-        mod = psweep
     else:
         _, _, ps, pp = _both(str(scenes / "plane"), [0], use_sweep=False)
-        mod = psolver
     want = pdm._run_batch(pp, ps, "cpu")
-    monkeypatch.setattr(mod, "_CHUNK", 3)
+    monkeypatch.setattr(prounds, "_CHUNK", 3)
     got = pdm._run_batch(pp, ps, "cpu")
     assert all(np.array_equal(x, y) for x, y in zip(got, want))
 

@@ -6,7 +6,7 @@ images (in the 20 scenes below, mve_tpu's cache serves a stale image 19
 times). The port holds a weak reference to the scene instead.
 
 Level images: the CPU path (numpy) is held bit for bit to
-half_size_gaussian_np applied `level` times to dmrecon._to_gray, and so is
+half_size_gaussian_np applied `level` times to pyramid._to_gray, and so is
 a numpy copy of the CUDA kernel's arithmetic (csrc/pyramid.cu: clamped
 indices, dx then dy, each product and sum rounded). The kernel itself is
 held to the numpy path by the test marked `chip`, which needs a card and
@@ -35,7 +35,7 @@ from mve_tpu_torch.core import Bundle, Feature2D, Feature3D, Scene, View, image_
 from mve_tpu_torch.mvs import Settings
 from mve_tpu_torch.mvs import dmrecon as mvs_dmrecon
 from mve_tpu_torch.mvs import pyramid as ppyr
-from mve_tpu_torch.mvs.dmrecon import _to_gray
+from mve_tpu_torch.mvs.pyramid import _to_gray
 from mve_tpu_torch.utils import tracing
 
 # Test workers run side by side: one intra-op thread each.
