@@ -115,6 +115,7 @@ def _prepare_view(scene, s: Settings, views, positions, vis, full_sizes,
         raise ValueError(f"view {view_id} invalid")
 
     with span("mvs.view_selection"):
+        count("vs_features", int(np.count_nonzero(vis[view_id])))
         cameras = [v.camera if v is not None else None for v in views]
         selected = global_view_selection(
             positions, vis, cameras, full_sizes, view_id,

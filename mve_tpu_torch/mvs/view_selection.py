@@ -28,14 +28,25 @@ import torch
 from .patch import _fma
 
 
-def _parallax_deg(points, center_a, center_b):
-    """Angle (deg) at each point between the two camera centers."""
-    va = center_a - points
-    vb = center_b - points
-    va = va / np.maximum(np.linalg.norm(va, axis=-1, keepdims=True), 1e-30)
-    vb = vb / np.maximum(np.linalg.norm(vb, axis=-1, keepdims=True), 1e-30)
-    cos = np.clip(np.sum(va * vb, axis=-1), -1.0, 1.0)
-    return np.rad2deg(np.arccos(cos))
+# Vectors are kept as three arrays of components. numpy sums a last axis
+# of three (np.sum, np.linalg.norm) as (x + y) + z; the sums below keep
+# that order, so each value is mve_tpu's bit for bit.
+
+def _unit(x, y, z):
+    """(x, y, z) over its length (at least 1e-30)."""
+    n = np.maximum(np.sqrt((x * x + y * y) + z * z), 1e-30)
+    return x / n, y / n, z / n
+
+
+def _cos(a, b):
+    """Cosine of each pair of unit vectors, clipped to [-1, 1]."""
+    return np.clip((a[0] * b[0] + a[1] * b[1]) + a[2] * b[2], -1.0, 1.0)
+
+
+def _min_parallax_weight(cos, min_parallax):
+    """(plx/10)^2 below min_parallax degrees, 1 above."""
+    plx = np.rad2deg(np.arccos(cos))
+    return np.where(plx < min_parallax, (plx / 10.0) ** 2, 1.0)
 
 
 def _footprint(points, camera, width, height):
@@ -56,55 +67,81 @@ def global_view_selection(
     max_views: int = 20,
     min_parallax: float = 10.0,
 ) -> List[int]:
-    V = len(cameras)
+    """The views mve_tpu's dense (V, F) loops select, in the same order.
+
+    Only the reference's features score, so the work runs over the pairs
+    (candidate, feature) that the two share, grouped by candidate: each
+    score and weight is mve_tpu's, element by element, and a selection
+    step updates every candidate in one pass.
+    """
+    V, F = feature_vis.shape
     valid = np.array([c is not None and c.valid for c in cameras])
     valid[ref_view] = False
     centers = np.stack([
         c.camera_pos() if (c is not None and c.valid) else np.zeros(3)
         for c in cameras])
 
-    shared = feature_vis & feature_vis[ref_view][None, :]  # (V, F)
-    ref_fp = _footprint(feature_positions, cameras[ref_view], *sizes[ref_view])
+    cols = np.nonzero(feature_vis[ref_view])[0]
+    pts = feature_positions[cols]
+    ref_fp = _footprint(feature_positions, cameras[ref_view], *sizes[ref_view])[cols]
+    pair_view, pair_col = np.nonzero(feature_vis[:, cols] & valid[:, None])
+    cands = np.unique(pair_view)
+    starts = np.searchsorted(pair_view, np.arange(V + 1))
+    unit = _unit(*(centers[pair_view] - pts[pair_col]).T)
 
-    # Precompute per-candidate static scores (parallax-to-ref x resolution).
-    static_scores = np.zeros((V, feature_positions.shape[0]), np.float64)
-    for i in range(V):
-        if not valid[i] or not shared[i].any():
-            continue
-        idx = np.nonzero(shared[i])[0]
-        pts = feature_positions[idx]
-        plx = _parallax_deg(pts, centers[ref_view], centers[i])
-        score = np.where(plx < min_parallax, (plx / 10.0) ** 2, 1.0)
-        fp = _footprint(pts, cameras[i], *sizes[i])
-        ratio = ref_fp[idx] / np.maximum(fp, 1e-30)
-        ratio = np.where(ratio > 2.0, 2.0 / ratio, np.minimum(ratio, 1.0))
-        static_scores[i, idx] = score * ratio
+    # Static score of each pair: parallax to the reference x resolution.
+    ref_unit = _unit(*(centers[ref_view] - pts).T)
+    score = _min_parallax_weight(_cos([c[pair_col] for c in ref_unit], unit), min_parallax)
+    fp = np.empty(len(pair_view))
+    for v in cands:
+        rows = slice(starts[v], starts[v + 1])
+        fp[rows] = _footprint(pts[pair_col[rows]], cameras[v], *sizes[v])
+    ratio = ref_fp[pair_col] / np.maximum(fp, 1e-30)
+    ratio = np.where(ratio > 2.0, 2.0 / ratio, np.minimum(ratio, 1.0))
+    static = score * ratio
 
+    # reduceat sums a candidate's pairs in another order than mve_tpu's
+    # dense row sum; the two differ by at most `slack` of the largest
+    # benefit, so only candidates that close to it are summed densely.
+    slack = 8 * max(len(cols), 1) * np.finfo(np.float64).eps
+    # Below this cosine the parallax is min_parallax or more, with room
+    # for float32 arccos and rad2deg rounding: the weight is exactly 1.
+    at_least_min = np.cos(np.deg2rad(min(min_parallax, 180.0))) - 1e-5
     selected: List[int] = []
     available = valid.copy()
-    # Diversity multiplier accumulated as views are selected.
-    diversity = np.ones((V, feature_positions.shape[0]), np.float64)
+    diversity = np.ones(len(pair_view))
+    best_unit = [np.zeros(len(cols), u.dtype) for u in unit]
+    seen = np.zeros(len(cols), bool)
+    benefits = np.zeros(V)
     while len(selected) < max_views:
-        benefits = np.where(
-            available[:, None], static_scores * diversity, 0.0).sum(axis=1)
-        best = int(np.argmax(benefits))
-        if benefits[best] <= 0.0:
+        gain = static * diversity
+        if len(cands):
+            benefits[cands] = np.add.reduceat(gain, starts[cands])
+        benefits[~available] = 0.0
+        top = benefits.max()
+        if top <= 0.0:
             break
+        near = np.nonzero(benefits >= top - slack * top)[0]
+        best = int(near[0])
+        if len(near) > 1:
+            dense = np.zeros((len(near), F))
+            for j, v in enumerate(near):
+                rows = slice(starts[v], starts[v + 1])
+                dense[j, cols[pair_col[rows]]] = gain[rows]
+            best = int(near[np.argmax(dense.sum(axis=1))])
         selected.append(best)
         available[best] = False
-        # Update diversity: features seen by `best` get parallax weight
-        # w.r.t. the new selection for every remaining candidate.
-        idx = np.nonzero(feature_vis[best])[0]
-        if len(idx) == 0:
-            continue
-        for i in np.nonzero(available)[0]:
-            both = shared[i, idx]
-            if not both.any():
-                continue
-            sub = idx[both]
-            plx = _parallax_deg(feature_positions[sub], centers[best], centers[i])
-            w = np.where(plx < min_parallax, (plx / 10.0) ** 2, 1.0)
-            diversity[i, sub] *= w
+        # Features seen by `best` get the parallax weight w.r.t. it for
+        # every candidate; a selected candidate's diversity is not read
+        # again.
+        rows = slice(starts[best], starts[best + 1])
+        seen[:] = False
+        seen[pair_col[rows]] = True
+        for b, u in zip(best_unit, unit):
+            b[pair_col[rows]] = u[rows]
+        cos = _cos([b[pair_col] for b in best_unit], unit)
+        close = np.nonzero((cos > at_least_min) & seen[pair_col])[0]
+        diversity[close] *= _min_parallax_weight(cos[close], min_parallax)
     return selected
 
 

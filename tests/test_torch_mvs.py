@@ -28,6 +28,7 @@ result moves by a median 9.4e-4 when its seed depth map changes by one
 ulp.
 """
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -44,13 +45,14 @@ from mve_tpu.mvs import solver as jsolver, sweep_solver as jsweep
 from mve_tpu.mvs import view_selection as jvs
 from mve_tpu.mvs.settings import Settings as JSettings
 
-from mve_tpu_torch.core import Scene
+from mve_tpu_torch import synthetic_street as st
+from mve_tpu_torch.core import CameraInfo as PCamera, Scene
 from mve_tpu_torch.interop import mvs_settings_from_dict
 from mve_tpu_torch.mvs import dmrecon as pdm, patch as ppatch, pyramid as ppyr
 from mve_tpu_torch.mvs import rounds as prounds, solver as psolver, sweep_solver as psweep
 from mve_tpu_torch.mvs import view_selection as pvs
 
-from tests.synthetic import PLANE_Z, make_plane_scene, make_texture, render_view
+from tests.synthetic import PLANE_Z, make_cameras, make_plane_scene, make_texture, render_view
 from tests.torch_legacy_grid import legacy_grid
 
 # Test workers run side by side: one intra-op thread each.
@@ -174,22 +176,130 @@ def test_half_size_gaussian_identical(shape):
     assert np.array_equal(jpyr.half_size_gaussian_np(img), ppyr.half_size_gaussian_np(img))
 
 
-def test_global_view_selection_identical(scenes):
+def _seen_by(cams, pts, w, h):
+    """(V, P) bool: each camera has the point in front of it and inside
+    its w x h image."""
+    vis = []
+    for cam in cams:
+        pc = pts @ cam.rot.astype(np.float64).T + cam.trans
+        uvw = pc @ cam.calibration(w, h).T
+        with np.errstate(divide="ignore", invalid="ignore"):
+            u, v = uvw[:, 0] / uvw[:, 2], uvw[:, 1] / uvw[:, 2]
+        vis.append((pc[:, 2] > 0) & (u >= 0) & (u < w) & (v >= 0) & (v < h))
+    return np.stack(vis)
+
+
+def _ring_bundle(n_views, n_points, w, h, seed=0):
+    """A ring of cameras around a central view facing the plane of
+    tests/synthetic.py, and the first n_points on the plane that two
+    views or more see."""
+    cams = make_cameras(n_views, seed=seed)
+    xy = np.random.RandomState(seed).uniform([-3.5, -2.8], [3.5, 2.8], (3 * n_points, 2))
+    pts = np.c_[xy, np.full(len(xy), PLANE_Z)].astype(np.float32)
+    vis = _seen_by(cams, pts.astype(np.float64), w, h)
+    keep = np.nonzero(vis.sum(0) >= 2)[0][:n_points]
+    return pts[keep], vis[:, keep], cams, [(w, h)] * n_views
+
+
+def _street_bundle():
+    """kitti00's shape: 124 frames of 1241x376 down the street of
+    synthetic_street.py, 20,000 points, a track over at most 38 frames."""
+    w, h = 1241, 376
+    frames = st.make_cameras(124, st.rng_for(0, 0))
+    pts, vis = st.bundle_points(20000, frames, w, h, st.rng_for(0, 3), torch)
+    cams = []
+    for f in frames:
+        cam = JCamera()
+        cam.flen, cam.rot, cam.trans = f.flen, f.R.astype(np.float32), f.t.astype(np.float32)
+        cams.append(cam)
+    return pts.astype(np.float32), vis, cams, [(w, h)] * 124
+
+
+def _plane_bundle(scenes):
     scene = JScene(str(scenes / "plane"))
     views = scene.get_views()
     bundle = scene.get_bundle()
     s = JSettings()
     vis = jdm._feature_visibility(bundle, len(views), s.aabb_min, s.aabb_max)
-    sizes = [v.get_image_size("undistorted") for v in views]
-    cams = [v.camera for v in views]
-    pcams = [v.camera for v in Scene(str(scenes / "plane")).get_views()]
-    for ref in range(len(views)):
+    return (bundle.feature_positions(), vis, [v.camera for v in views],
+            [v.get_image_size("undistorted") for v in views])
+
+
+def _edge_bundle(case):
+    """Seven views of 96x72 in a ring, with one thing changed."""
+    pts, vis, cams, sizes = _ring_bundle(7, 300, 96, 72)
+    refs = [0, 1, 5]
+    if case == "invalid-camera":
+        cams[2] = None
+        cams[4].flen = 0.0
+    elif case == "shares-nothing":
+        vis[3] &= ~vis[0]
+        assert vis[3].any()
+        refs = [0]
+    elif case == "unseen-reference":
+        vis[1:, vis[0]] = False
+        refs = [0]
+    elif case == "tie":
+        cams[6], vis[6] = copy.deepcopy(cams[5]), vis[5]
+        refs = [2, 3]   # 5 and 6 lead with the same benefit
+    return pts, vis, cams, sizes, refs
+
+
+def _port_camera(cam):
+    if cam is None:
+        return None
+    return PCamera(flen=cam.flen, ppoint=cam.ppoint, paspect=cam.paspect, dist=cam.dist,
+                   trans=cam.trans, rot=cam.rot)
+
+
+@pytest.mark.parametrize("case", ["plane", "dtu49-ring", "kitti00-street", "invalid-camera",
+                                  "shares-nothing", "unseen-reference", "tie"])
+def test_global_view_selection_identical(scenes, case):
+    """mve_tpu's list at the benchmark's shapes (a dtu49-like ring of 49
+    views of 1600x1200 and 8,000 points; kitti00's street) and at edges:
+    no camera or an invalid one, a candidate sharing no feature with the
+    reference, a reference no other view shares a feature with, and two
+    candidates with the same benefit (the first is taken)."""
+    if case == "plane":
+        (pts, vis, cams, sizes), refs = _plane_bundle(scenes), range(5)
+    elif case == "dtu49-ring":
+        (pts, vis, cams, sizes), refs = _ring_bundle(49, 8000, 1600, 1200), [0, 17, 40]
+    elif case == "kitti00-street":
+        (pts, vis, cams, sizes), refs = _street_bundle(), [38, 61, 85]
+    else:
+        pts, vis, cams, sizes, refs = _edge_bundle(case)
+    pcams = [_port_camera(c) for c in cams]
+    for ref in refs:
         for max_views in (2, 20):
-            a = jvs.global_view_selection(bundle.feature_positions(), vis, cams, sizes, ref,
-                                          max_views=max_views)
-            b = pvs.global_view_selection(bundle.feature_positions(), vis, pcams, sizes, ref,
-                                          max_views=max_views)
+            a = jvs.global_view_selection(pts, vis, cams, sizes, ref, max_views=max_views)
+            b = pvs.global_view_selection(pts, vis, pcams, sizes, ref, max_views=max_views)
             assert a == b
+            if case in ("dtu49-ring", "kitti00-street"):
+                assert len(a) == max_views
+            elif case == "invalid-camera":
+                assert not {2, 4} & set(a)
+            elif case == "shares-nothing":
+                assert 3 not in a
+            elif case == "unseen-reference":
+                assert a == []
+            elif case == "tie":
+                assert a[0] == 5
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_view_selection_sums_as_numpy(dtype):
+    """The port's vector helpers sum three components in the order
+    np.linalg.norm and np.sum(..., axis=-1) do, bit for bit."""
+    rng = np.random.RandomState(4)
+    a = (rng.randn(20000, 3) * 10.0 ** rng.randint(-3, 4, (20000, 3))).astype(dtype)
+    b = rng.randn(20000, 3).astype(dtype)
+    ua = a / np.maximum(np.linalg.norm(a, axis=-1, keepdims=True), 1e-30)
+    ub = b / np.maximum(np.linalg.norm(b, axis=-1, keepdims=True), 1e-30)
+    got = pvs._unit(*a.T)
+    assert all(g.dtype == dtype for g in got)
+    assert np.array_equal(np.stack(got, -1), ua)
+    want = np.clip(np.sum(ua * ub, axis=-1), -1.0, 1.0)
+    assert np.array_equal(pvs._cos(tuple(ua.T), tuple(ub.T)), want)
 
 
 def _random_pair(seed):

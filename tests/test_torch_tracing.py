@@ -17,7 +17,7 @@ import torch
 from mve_tpu.utils import compile_stats as jstats
 
 from mve_tpu_torch.apps import dmrecon as dmrecon_app
-from mve_tpu_torch.core import image_io
+from mve_tpu_torch.core import Scene, image_io
 from mve_tpu_torch.fssr.iso_octree import IsoOctree
 from mve_tpu_torch.mvs import dmrecon as mvs_dmrecon
 from mve_tpu_torch.utils import compile_stats as pstats
@@ -156,7 +156,7 @@ def traced(scene):
     return recs, marks, dict(mvs_dmrecon.LAST_TIMINGS), decoded
 
 
-def test_dmrecon_span_tree(traced):
+def test_dmrecon_span_tree(traced, scene):
     recs = traced[0]
     (root,) = [r for r in recs if r.parent is None]
     assert root.name == "dmrecon.call" and {r.call for r in recs} == {root.id}
@@ -177,6 +177,13 @@ def test_dmrecon_span_tree(traced):
                                                                             "mvs.rectify"]
         # The reference view and its 4 neighbours: each a miss or a hit.
         assert loads + view.counters.get("level_hits", 0) == 5
+    # Global view selection counts the reference's features, the columns
+    # it keeps.
+    bundle = Scene(scene).get_bundle()
+    sees = [sum(any(r.view_id == v for r in f.refs) for f in bundle.features) for v in (0, 1)]
+    selections = [kids[view.id][0] for view in kids[by["mvs.prepare"].id][1:]]
+    assert [r.counters for r in selections] == [{"vs_features": n} for n in sees]
+    assert 0 < min(sees)
     first, second = kids[by["mvs.prepare"].id][1:]
     assert names(first.id).count("mvs.load_level") == 5 and second.counters == {"level_hits": 5}
     for key, name in (("bytes_h2d", "mvs.upload"), ("bytes_d2h", "mvs.readback"),
