@@ -241,7 +241,8 @@ def _run_batch(prepared: list, s: Settings, device="cuda"):
     solver and read the results back once (spans mvs.pack, mvs.upload, the
     solver's mvs.solve.<phase> or mvs.solve.warp_<phase>, mvs.readback).
     Counts the views by the solver they took (views_sweep, views_warp) in
-    the enclosing span.
+    the enclosing span. Neighbors smaller than the padded neighbor tensor
+    are bounded by their own size (the solver's neigh_hw).
 
     All views in `prepared` must agree on _sweep_capable. Returns
     (depth (B,H,W), conf, dz (B,H,W,2), n_accepted (B,)) numpy."""
@@ -251,10 +252,12 @@ def _run_batch(prepared: list, s: Settings, device="cuda"):
     params, n_abs = _solver_params(s)
     sweep = _sweep_capable(prepared[0], s)
     count("views_sweep" if sweep else "views_warp", len(prepared))
-    host, rect_hw = _pack(prepared, s, sweep, n_abs)
+    host, neigh_hw, rect_hw = _pack(prepared, s, sweep, n_abs)
     with span("mvs.upload"):
         count("bytes_h2d", sum(a.nbytes for a in host))
         args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in host]
+        if neigh_hw is not None:
+            neigh_hw = torch.from_numpy(neigh_hw).to(dev)
     if sweep:
         from .sweep_solver import solve_batch_sweep
 
@@ -262,9 +265,9 @@ def _run_batch(prepared: list, s: Settings, device="cuda"):
             *args, fw=params["fw"], k=params["k"], D=int(s.num_lookup_planes),
             n_prop=params["n_prop"], n_refine=params["n_refine"],
             n_plane_rounds=params["n_plane_rounds"], use_local=params["use_local"],
-            rect_hw=rect_hw)
+            rect_hw=rect_hw, neigh_hw=neigh_hw)
     else:
-        out = solve_batch(*args, **params)
+        out = solve_batch(*args, neigh_hw=neigh_hw, **params)
     with span("mvs.readback"):
         depth, conf, dz, n_acc = (t.cpu().numpy() for t in out)
         count("bytes_d2h", depth.nbytes + conf.nbytes + dz.nbytes + n_acc.nbytes)
@@ -275,15 +278,21 @@ def _run_batch(prepared: list, s: Settings, device="cuda"):
 @span("mvs.pack")
 def _pack(prepared: list, s: Settings, sweep: bool, n_abs: int):
     """The batch's host arrays, padded and stacked, in the order of the
-    solver's arguments, and the sweep solver's rect grid (None for the warp
-    solver)."""
+    solver's arguments; the (B, Jmax, 2) float32 (height, width) of each
+    neighbor image inside the padded (B, Jmax, Hn, Wn) neighbor tensor, or
+    None where every one fills it; and the sweep solver's rect grid (None
+    for the warp solver). Counts the pixels of the neighbor images
+    (neigh_px) and of the padded tensor (neigh_px_padded)."""
     B = len(prepared)
     Jmax = max(p["T"].shape[0] for p in prepared)
     Hn = max(g.shape[0] for p in prepared for g in p["neigh"])
     Wn = max(g.shape[1] for p in prepared for g in p["neigh"])
+    count("neigh_px", sum(g.size for p in prepared for g in p["neigh"]))
+    count("neigh_px_padded", B * Jmax * Hn * Wn)
 
     ref = np.stack([p["ref"] for p in prepared])
     neigh = np.full((B, Jmax, Hn, Wn), -1e3, np.float32)
+    neigh_hw = np.tile(np.float32([Hn, Wn]), (B, Jmax, 1))
     nvalid = np.zeros((B, Jmax), bool)
     T = np.tile(np.eye(3, dtype=np.float32), (B, Jmax, 1, 1))
     tvec = np.zeros((B, Jmax, 3), np.float32)
@@ -297,6 +306,7 @@ def _pack(prepared: list, s: Settings, sweep: bool, n_abs: int):
         cam_rel[b, :Jb] = p["cam_rel"]
         for j, g in enumerate(p["neigh"]):
             neigh[b, j, : g.shape[0], : g.shape[1]] = g
+            neigh_hw[b, j] = g.shape
         abs_planes[b] = np.geomspace(max(p["dmin"], 1e-4), p["dmax"], n_abs)
     ray_z = np.stack([p["ray_z"] for p in prepared])
     init_depth = np.stack([p["init_depth"] for p in prepared])
@@ -306,9 +316,12 @@ def _pack(prepared: list, s: Settings, sweep: bool, n_abs: int):
     scalars = np.asarray([s.min_ncc, s.min_parallax, s.accept_ncc,
                           s.min_refine_diff], np.float32)
 
+    if (neigh_hw == np.float32([Hn, Wn])).all():
+        neigh_hw = None
     common = (ref, neigh, nvalid, T, tvec, ray_z)
     if not sweep:
-        return common + (init_depth, dmin, dmax, abs_planes, ray_world, cam_rel, scalars), None
+        return (common + (init_depth, dmin, dmax, abs_planes, ray_world, cam_rel, scalars),
+                neigh_hw, None)
     D = int(s.num_lookup_planes)
     M_ref = np.tile(np.eye(3, dtype=np.float32), (B, Jmax, 1, 1))
     M_nei = np.tile(np.eye(3, dtype=np.float32), (B, Jmax, 1, 1))
@@ -336,8 +349,8 @@ def _pack(prepared: list, s: Settings, sweep: bool, n_abs: int):
     # it bounds the number of compiled programs; the bucket also sets
     # the grid that the cube's clip bounds see, so it is kept).
     rect_hw = (-(-rect_h // 32) * 32, -(-rect_w // 32) * 32)
-    return common + (M_ref, M_nei, H_fwd, e3, fB, w0, dw, init_depth, dmin, dmax,
-                     ray_world, cam_rel, scalars), rect_hw
+    return (common + (M_ref, M_nei, H_fwd, e3, fB, w0, dw, init_depth, dmin, dmax,
+                      ray_world, cam_rel, scalars), neigh_hw, rect_hw)
 
 
 def _batch_size_limit(H: int, W: int, J: int, s: Settings) -> int:
@@ -421,6 +434,7 @@ def reconstruct_batch(scene: Scene, base: Settings, view_ids,
                 continue
             key = (scale, prep["ref"].shape, _sweep_capable(prep, s))
             groups.setdefault(key, []).append(prep)
+        count("solver_groups", len(groups))
         timings = dict(prepare_ms=1e3 * (time.perf_counter() - t0), solve_ms=0.0,
                        write_ms=0.0, batches=[])
 

@@ -135,18 +135,30 @@ def _project(T, tvec, z, qx, qy):
     return hx / hz_safe - 0.5, hy / hz_safe - 0.5, hz
 
 
-def _warp_bilinear(neigh_imgs, T, tvec, z, qx, qy):
+def _corner(x, hi):
+    """floor(x) clipped to [0, hi]; hi an int, or a float tensor that
+    broadcasts against x (a bound per neighbor)."""
+    if isinstance(hi, torch.Tensor):
+        return torch.minimum(torch.clamp(torch.floor(x), min=0), hi)
+    return torch.clamp(torch.floor(x), 0, hi)
+
+
+def _warp_bilinear(neigh_imgs, T, tvec, z, qx, qy, hw=None):
     """Warp reference pixels into neighbor views: bilinear corners.
 
     T: (..., 3, 3), tvec: (..., 3) broadcastable against z's leading axes;
-    z, qx, qy broadcast to the output shape. Returns (u0i, v0i, fu, fv,
+    z, qx, qy broadcast to the output shape. hw: None, or (..., 2) float
+    (height, width) of each neighbor's own image inside the padded
+    (Hn, Wn) tensor, broadcastable as T: a tap outside it is out of
+    bounds and no corner reads the padding. Returns (u0i, v0i, fu, fv,
     in_bounds) with int64 corner indices.
     """
     Hn, Wn = neigh_imgs.shape[-2], neigh_imgs.shape[-1]
+    h, w = (Hn, Wn) if hw is None else (hw[..., 0], hw[..., 1])
     u, v, hz = _project(T, tvec, z, qx, qy)
-    inb = (u >= 0) & (u <= Wn - 1) & (v >= 0) & (v <= Hn - 1) & (hz > 0)
-    u0 = torch.clamp(torch.floor(u), 0, Wn - 2)
-    v0 = torch.clamp(torch.floor(v), 0, Hn - 2)
+    inb = (u >= 0) & (u <= w - 1) & (v >= 0) & (v <= h - 1) & (hz > 0)
+    u0 = _corner(u, w - 2)
+    v0 = _corner(v, h - 2)
     fu = torch.clamp(u - u0, 0.0, 1.0)
     fv = torch.clamp(v - v0, 0.0, 1.0)
     return _index(u0, Wn - 2), _index(v0, Hn - 2), fu, fv, inb
@@ -317,7 +329,7 @@ def ncc_score(ref_img, neigh_imgs, T, tvec, ray_z, depth,
 
 
 def _plane_tap_sums(ref_img, neigh_imgs, Tg, tg, gather, ray_z,
-                    depths, dzx, dzy, filter_width: int, lead_shape):
+                    depths, dzx, dzy, filter_width: int, lead_shape, hw=None):
     """Shared tap loop for slanted-patch (plane) NCC.
 
     The patch plane is the reference's (depth, dzI, dzJ) parametrization
@@ -329,7 +341,8 @@ def _plane_tap_sums(ref_img, neigh_imgs, Tg, tg, gather, ray_z,
     Tg/tg: broadcastable reprojection operators with leading dims
     lead_shape (e.g. (S, 1) for selected views x candidates or (J, 1)).
     gather(v0i, u0i): bilinear corner gather returning neighbor values.
-    depths/dzx/dzy: (K, H, W) candidate plane stacks.
+    depths/dzx/dzy: (K, H, W) candidate plane stacks. hw: the neighbors'
+    own sizes, broadcastable as Tg (_warp_bilinear).
     Returns per-(lead..., K, H, W) NCC plus validity.
     """
     K, H, W = depths.shape
@@ -354,7 +367,7 @@ def _plane_tap_sums(ref_img, neigh_imgs, Tg, tg, gather, ray_z,
         L = depths + dx * dzx + dy * dzy      # (K, H, W) tap ray length
         pos_ok = L > 0.0                      # patch_sampler.cc:285-288
         u0i, v0i, fu, fv, inb = _warp_bilinear(
-            neigh_imgs, Tg, tg, L * rz, xs + dx + 0.5, ys + dy + 0.5)
+            neigh_imgs, Tg, tg, L * rz, xs + dx + 0.5, ys + dy + 0.5, hw)
         valid = valid & inb & pos_ok
         nv = _bilinear(gather, v0i, u0i, fu, fv)
         sum_n = sum_n + nv
@@ -387,17 +400,21 @@ def ncc_score_plane(ref_img, neigh_imgs, T, tvec, ray_z, depths, dzx, dzy,
 
 
 def ncc_score_plane_sel(ref_img, neigh_imgs, T, tvec, ray_z, depths,
-                        dzx, dzy, sel, sel_valid, filter_width: int = 5):
+                        dzx, dzy, sel, sel_valid, filter_width: int = 5,
+                        neigh_hw=None):
     """Slanted-patch NCC over per-pixel SELECTED views.
 
-    sel: (S, H, W) int; sel_valid: (S, H, W); depths/dzx/dzy: (K, H, W).
+    sel: (S, H, W) int; sel_valid: (S, H, W); depths/dzx/dzy: (K, H, W);
+    neigh_hw: None, or (J, 2) each neighbor's own (height, width) in the
+    padded neigh_imgs (_warp_bilinear).
     Returns (score (K, H, W), kth (K, H, W)) like ncc_score_box_sel."""
     S = sel.shape[0]
     jidx = sel[:, None]
     ncc, valid = _plane_tap_sums(
         ref_img, neigh_imgs, T[sel][:, None], tvec[sel][:, None],
         lambda v, u: _gather_views(neigh_imgs, jidx, v, u), ray_z,
-        depths, dzx, dzy, filter_width, (S,))
+        depths, dzx, dzy, filter_width, (S,),
+        None if neigh_hw is None else neigh_hw[sel][:, None])
     ok = valid & sel_valid[:, None]
     return _combine_sel(torch.where(ok, ncc, -1.0), ok)
 

@@ -38,10 +38,12 @@ from ..utils.tracing import span
 # normals (patch_sampler.cc getPatchNormal)
 # -----------------------------------------------------------------------
 
-def _ncc_box_all(ref, rstats, neigh, nvalid, T, tvec, ray_z, depths, fw):
+def _ncc_box_all(ref, rstats, neigh, nvalid, T, tvec, ray_z, depths, fw, neigh_hw=None):
     """Box-NCC of every neighbor for a candidate stack.
 
     depths: (K, H, W) ray lengths -> (ncc (J, K, H, W), ok (J, K, H, W)).
+    neigh_hw: None, or (J, 2) each neighbor's own (height, width) in the
+    padded neigh (patch._warp_bilinear).
     """
     H, W = ref.shape
     J = neigh.shape[0]
@@ -50,7 +52,8 @@ def _ncc_box_all(ref, rstats, neigh, nvalid, T, tvec, ray_z, depths, fw):
     z = depths * ray_z[None]                                  # (K, H, W)
     u0i, v0i, fu, fv, inb = _warp_bilinear(
         neigh, T[:, None, None, None], tvec[:, None, None, None],
-        z[None], xs + 0.5, ys + 0.5)                          # (J, K, H, W)
+        z[None], xs + 0.5, ys + 0.5,
+        None if neigh_hw is None else neigh_hw[:, None, None, None])  # (J, K, H, W)
     jidx = torch.arange(J, device=ref.device)[:, None, None, None]
     nv = _bilinear(lambda v, u: _gather_views(neigh, jidx, v, u), v0i, u0i, fu, fv)
     inb = inb & (depths > 0)[None]
@@ -343,9 +346,11 @@ def _solve_views(solve_view, batched, scalars, **kw):
     """Each view of a batch through solve_view(*views_args, scalars,
     phase=..., **kw), one after another on the device that holds the
     inputs, its phases opened by _phase_spans. batched: the per-view
-    arguments, each with the batch on dim 0. Returns the outputs stacked."""
+    arguments, each with the batch on dim 0, or None (passed on as None).
+    Returns the outputs stacked."""
     outs = []
     for b in range(batched[0].shape[0]):
         with _phase_spans(batched[0].device) as phase:
-            outs.append(solve_view(*(a[b] for a in batched), scalars, phase=phase, **kw))
+            outs.append(solve_view(*(None if a is None else a[b] for a in batched), scalars,
+                                   phase=phase, **kw))
     return tuple(torch.stack(x) for x in zip(*outs))

@@ -31,14 +31,17 @@ from .rounds import (_accept, _local_view_selection, _ncc_box_all, _plane_rounds
 # scoring primitives
 # -----------------------------------------------------------------------
 
-def _ncc_box_sel(ref, rstats, neigh, T, tvec, ray_z, depths, sel, sel_valid, fw):
-    """Box-NCC over per-pixel SELECTED views: (S, K, H, W)."""
+def _ncc_box_sel(ref, rstats, neigh, T, tvec, ray_z, depths, sel, sel_valid, fw,
+                 neigh_hw=None):
+    """Box-NCC over per-pixel SELECTED views: (S, K, H, W). neigh_hw: as
+    rounds._ncc_box_all's."""
     H, W = ref.shape
     mean_r, var_r = rstats
     ys, xs = _grid(H, W, ref.device)
     z = depths * ray_z[None]                                  # (K, H, W)
     u0i, v0i, fu, fv, inb = _warp_bilinear(
-        neigh, T[sel][:, None], tvec[sel][:, None], z[None], xs + 0.5, ys + 0.5)
+        neigh, T[sel][:, None], tvec[sel][:, None], z[None], xs + 0.5, ys + 0.5,
+        None if neigh_hw is None else neigh_hw[sel][:, None])
     jidx = sel[:, None]
     nv = _bilinear(lambda v, u: _gather_views(neigh, jidx, v, u), v0i, u0i, fu, fv)
     inb = inb & (depths > 0)[None]
@@ -47,12 +50,14 @@ def _ncc_box_sel(ref, rstats, neigh, T, tvec, ray_z, depths, sel, sel_valid, fw)
     return torch.where(ok, ncc, -1.0), ok
 
 
-def _ncc_plane_all(ref, neigh, nvalid, T, tvec, ray_z, depths, dzx, dzy, fw, k):
+def _ncc_plane_all(ref, neigh, nvalid, T, tvec, ray_z, depths, dzx, dzy, fw, k,
+                   neigh_hw=None):
     J = neigh.shape[0]
     jidx = torch.arange(J, device=ref.device)[:, None, None, None]
     ncc, valid = _plane_tap_sums(
         ref, neigh, T[:, None, None, None], tvec[:, None, None, None],
-        lambda v, u: _gather_views(neigh, jidx, v, u), ray_z, depths, dzx, dzy, fw, (J,))
+        lambda v, u: _gather_views(neigh, jidx, v, u), ray_z, depths, dzx, dzy, fw, (J,),
+        None if neigh_hw is None else neigh_hw[:, None, None, None])
     ok = valid & nvalid[:, None, None, None]
     return _combine_topk(torch.where(ok, ncc, -1.0), ok, k)
 
@@ -62,44 +67,50 @@ def _ncc_plane_all(ref, neigh, nvalid, T, tvec, ray_z, depths, dzx, dzy, fw, k):
 # -----------------------------------------------------------------------
 
 def _solve_view(ref, neigh, nvalid, T, tvec, ray_z, init_depth, dmin, dmax,
-                abs_planes, ray_world, cam_rel, scalars, *,
+                abs_planes, ray_world, cam_rel, neigh_hw, scalars, *,
                 fw, k, n_prop, n_refine, n_plane_rounds, use_local, exact,
                 rel_factors, phase):
     """One reference view end-to-end on the device. `scalars` = (4,)
-    float32 [min_ncc, min_parallax, accept_ncc, min_refine_diff].
+    float32 [min_ncc, min_parallax, accept_ncc, min_refine_diff];
+    neigh_hw: (J, 2) the neighbors' own sizes in the padded neigh, or
+    None where each fills it.
     phase(name): called at each phase's start (see rounds._phase_spans)."""
     min_ncc, min_parallax, accept_ncc, min_refine_diff = scalars
     rstats = _ref_box_stats(ref, fw)
 
     def plane_score(ds, zxs, zys, sel, sel_valid):
         if not use_local:
-            return _ncc_plane_all(ref, neigh, nvalid, T, tvec, ray_z, ds, zxs, zys, fw, k)
+            return _ncc_plane_all(ref, neigh, nvalid, T, tvec, ray_z, ds, zxs, zys, fw, k,
+                                  neigh_hw)
         return ncc_score_plane_sel(ref, neigh, T, tvec, ray_z, ds, zxs, zys,
-                                   sel, sel_valid, fw)
+                                   sel, sel_valid, fw, neigh_hw)
 
     if exact:
         # Per-tap warps (the plane kernel at zero slope) — the faithful
         # formulation of the reference's fronto-parallel patches.
         def score_all(ds):
             z0 = torch.zeros_like(ds)
-            return _ncc_plane_all(ref, neigh, nvalid, T, tvec, ray_z, ds, z0, z0, fw, k)
+            return _ncc_plane_all(ref, neigh, nvalid, T, tvec, ray_z, ds, z0, z0, fw, k,
+                                  neigh_hw)
 
         def score_sel(ds, sel, sel_valid):
             z0 = torch.zeros_like(ds)
             return ncc_score_plane_sel(ref, neigh, T, tvec, ray_z, ds, z0, z0,
-                                       sel, sel_valid, fw)
+                                       sel, sel_valid, fw, neigh_hw)
     else:
         def score_all(ds):
-            ncc, ok = _ncc_box_all(ref, rstats, neigh, nvalid, T, tvec, ray_z, ds, fw)
+            ncc, ok = _ncc_box_all(ref, rstats, neigh, nvalid, T, tvec, ray_z, ds, fw,
+                                   neigh_hw)
             return _combine_topk(ncc, ok, k)
 
         def score_sel(ds, sel, sel_valid):
             ncc, ok = _ncc_box_sel(ref, rstats, neigh, T, tvec, ray_z, ds,
-                                   sel, sel_valid, fw)
+                                   sel, sel_valid, fw, neigh_hw)
             return _combine_sel(ncc, ok)
 
     def box_all(d):
-        ncc, _ = _ncc_box_all(ref, rstats, neigh, nvalid, T, tvec, ray_z, d[None], fw)
+        ncc, _ = _ncc_box_all(ref, rstats, neigh, nvalid, T, tvec, ray_z, d[None], fw,
+                              neigh_hw)
         return ncc[:, 0]
 
     def reselect(d):
@@ -138,11 +149,14 @@ def solve_batch(ref, neigh, nvalid, T, tvec, ray_z, init_depth, dmin, dmax,
                 abs_planes, ray_world, cam_rel, scalars, *,
                 fw: int, k: int, n_prop: int, n_refine: int,
                 n_plane_rounds: int, use_local: bool, exact: bool,
-                rel_factors: tuple):
+                rel_factors: tuple, neigh_hw=None):
     """Reconstruct a batch of reference views, one after another on the
     device that holds the inputs.
 
     ref: (B, H, W); neigh: (B, J, Hn, Wn) padded; nvalid: (B, J);
+    neigh_hw: None, or (B, J, 2) float each neighbor's own (height, width)
+    inside the padding: its taps outside that are out of bounds (None:
+    every neighbor fills (Hn, Wn));
     T: (B, J, 3, 3); tvec: (B, J, 3); ray_z/init_depth: (B, H, W);
     dmin/dmax: (B,); abs_planes: (B, n_abs); ray_world: (B, H, W, 3);
     cam_rel: (B, J, 3); scalars: (4,) [min_ncc, min_parallax, accept_ncc,
@@ -153,6 +167,6 @@ def solve_batch(ref, neigh, nvalid, T, tvec, ray_z, init_depth, dmin, dmax,
     """
     return _solve_views(
         _solve_view, (ref, neigh, nvalid, T, tvec, ray_z, init_depth, dmin, dmax,
-                      abs_planes, ray_world, cam_rel), scalars,
+                      abs_planes, ray_world, cam_rel, neigh_hw), scalars,
         fw=fw, k=k, n_prop=n_prop, n_refine=n_refine, n_plane_rounds=n_plane_rounds,
         use_local=use_local, exact=exact, rel_factors=rel_factors)

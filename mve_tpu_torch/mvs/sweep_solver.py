@@ -41,8 +41,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .patch import (_box_sum, _combine_sel, _combine_topk, _fma, _gather_views, _index,
-                    _plane_tap_sums, _recip)
+from .patch import (_box_sum, _combine_sel, _combine_topk, _corner, _fma, _gather_views,
+                    _index, _plane_tap_sums, _recip)
 from .rounds import (_accept, _local_view_selection, _ncc_box_all, _pick, _plane_rounds,
                      _propagate, _ref_box_stats, _refine, _reselect_with_fallback, _roll,
                      _solve_views, _start_selection, _sweep_start)
@@ -150,16 +150,19 @@ def _homography_coords(M, H, W, device):
     return hx / hz - 0.5, hy / hz - 0.5
 
 
-def _homography_warp(img, M, H, W, fill=-1e3):
+def _homography_warp(img, M, H, W, fill=-1e3, hw=None):
     """Sample `img` at homography-mapped rect grid positions.
 
     img: (Hi, Wi); M: (3, 3) maps rect pixel-centers -> img pixel
-    coords. Returns ((H, W) samples, (H, W) validity)."""
+    coords; hw: None, or the (2,) float (height, width) of the image
+    inside a padded img, beyond which samples are invalid. Returns
+    ((H, W) samples, (H, W) validity)."""
     Hi, Wi = img.shape
+    h, w = (Hi, Wi) if hw is None else (hw[0], hw[1])
     u, v = _homography_coords(M, H, W, img.device)
-    inb = (u >= 0) & (u <= Wi - 1) & (v >= 0) & (v <= Hi - 1)
-    u0 = torch.clamp(torch.floor(u), 0, Wi - 2)
-    v0 = torch.clamp(torch.floor(v), 0, Hi - 2)
+    inb = (u >= 0) & (u <= w - 1) & (v >= 0) & (v <= h - 1)
+    u0 = _corner(u, w - 2)
+    v0 = _corner(v, h - 2)
     fu = (u - u0).to(img.dtype)
     fv = (v - v0).to(img.dtype)
     u0i = _index(u0, Wi - 2)
@@ -318,11 +321,13 @@ def _linspace(start, stop, num: int):
 
 def _solve_view_sweep(ref, neigh, nvalid, T, tvec, ray_z,
                       M_ref, M_nei, H_fwd, e3, fB, w0, dw,
-                      init_depth, dmin, dmax, ray_world, cam_rel, scalars, *,
+                      init_depth, dmin, dmax, ray_world, cam_rel, neigh_hw, scalars, *,
                       fw, k, D, n_prop, n_refine, n_plane_rounds, use_local,
                       rect_hw=None, phase):
     """One reference view end-to-end with table-lookup scoring.
 
+    neigh_hw: (J, 2) the neighbors' own sizes in the padded neigh, or None
+    where each fills it.
     phase(name): called at each phase's start (see rounds._phase_spans)."""
     H, W = ref.shape
     J = neigh.shape[0]
@@ -341,7 +346,8 @@ def _solve_view_sweep(ref, neigh, nvalid, T, tvec, ray_z,
     tabs = []
     for j in range(J):
         rref, rok = _homography_warp(ref, M_ref[j], Hr, Wr)
-        rnei, nok = _homography_warp(neigh[j], M_nei[j], Hr, Wr)
+        rnei, nok = _homography_warp(neigh[j], M_nei[j], Hr, Wr,
+                                     hw=None if neigh_hw is None else neigh_hw[j])
         cube = _build_cube(rref, rok, rnei, nok, fB[j], w0[j], dw[j], D, fw)
         tabs.append(_reindex_cube(cube, H_fwd[j], H, W))
     tab = torch.stack(tabs)                                   # (J, H, W, D)
@@ -389,7 +395,7 @@ def _solve_view_sweep(ref, neigh, nvalid, T, tvec, ray_z,
     rstats = _ref_box_stats(ref, fw)
 
     def exact_all(L):
-        return _ncc_box_all(ref, rstats, neigh, nvalid, T, tvec, ray_z, L, fw)
+        return _ncc_box_all(ref, rstats, neigh, nvalid, T, tvec, ray_z, L, fw, neigh_hw)
 
     def score_exact(L):
         ncc_x, ok_x = exact_all(L)
@@ -520,7 +526,8 @@ def _solve_view_sweep(ref, neigh, nvalid, T, tvec, ray_z,
         # (patch_sampler.cc getFastNCC).
         ncc_pl, valid_pl = _plane_tap_sums(
             ref, neigh, T[:, None, None, None], tvec[:, None, None, None],
-            gather_all, ray_z, bd[None], bzx[None], bzy[None], fw, (J,))
+            gather_all, ray_z, bd[None], bzx[None], bzy[None], fw, (J,),
+            None if neigh_hw is None else neigh_hw[:, None, None, None])
         ncc_pl = torch.where(valid_pl & nvalid[:, None, None, None], ncc_pl, -1.0)[:, 0]
         bs = torch.maximum(bs, select_and_mean(ncc_pl, bd))
 
@@ -539,11 +546,12 @@ def solve_batch_sweep(ref, neigh, nvalid, T, tvec, ray_z,
                       M_ref, M_nei, H_fwd, e3, fB, w0, dw,
                       init_depth, dmin, dmax, ray_world, cam_rel, scalars, *,
                       fw: int, k: int, D: int, n_prop: int, n_refine: int,
-                      n_plane_rounds: int, use_local: bool, rect_hw=None):
+                      n_plane_rounds: int, use_local: bool, rect_hw=None,
+                      neigh_hw=None):
     """Batched rectified-sweep reconstruction, one view after another on
     the device that holds the inputs.
 
-    Shapes as solver.solve_batch plus per-pair rectification data:
+    Shapes (and neigh_hw) as solver.solve_batch plus per-pair rectification data:
     M_ref/M_nei/H_fwd: (B, J, 3, 3); e3: (B, J, 3); fB/w0/dw: (B, J).
     rect_hw: (Hr, Wr) rect-grid size fitted on the host to cover every
     pair's mapped ref image (rectify_pair rect_wh), or None for the legacy
@@ -552,6 +560,7 @@ def solve_batch_sweep(ref, neigh, nvalid, T, tvec, ray_z,
     """
     return _solve_views(
         _solve_view_sweep, (ref, neigh, nvalid, T, tvec, ray_z, M_ref, M_nei, H_fwd, e3, fB,
-                            w0, dw, init_depth, dmin, dmax, ray_world, cam_rel), scalars,
+                            w0, dw, init_depth, dmin, dmax, ray_world, cam_rel, neigh_hw),
+        scalars,
         fw=fw, k=k, D=D, n_prop=n_prop, n_refine=n_refine, n_plane_rounds=n_plane_rounds,
         use_local=use_local, rect_hw=rect_hw)
