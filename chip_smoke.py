@@ -229,7 +229,8 @@ from mve_tpu_torch.mvs import patch as mvs_patch
 from mve_tpu_torch.mvs import pyramid as mvs_pyramid
 from mve_tpu_torch.mvs import sweep_solver as mvs_sweep
 from mve_tpu_torch.mvs import view_selection as mvs_vs
-from mve_tpu_torch.ops import cuda_build, pyramid as pyramid_ops, top2 as top2_mod
+from mve_tpu_torch.ops import cuda_build, plane_ncc as plane_ncc_ops, pyramid as pyramid_ops
+from mve_tpu_torch.ops import top2 as top2_mod
 from mve_tpu_torch.ops.matching import descriptor_top2, descriptor_top2_pairs, split_tf32
 from mve_tpu_torch.parallel import get_mesh, multihost
 from mve_tpu_torch.render import rasterizer
@@ -579,6 +580,86 @@ def phase_pyramid(dev):
                          plain_ms=numpy_ms)
         del up, pinned, level_dev
     return times
+
+
+PEAK_F64_FLOPS = 34e12      # H100 SXM float64 outside the tensor cores
+
+
+def plane_ncc_cases():
+    """tests/torch_plane_ncc_inputs.py, loaded from its file (the tests
+    directory is not a package): the kernel's inputs at the main path's
+    forms."""
+    path = ROOT / "tests" / "torch_plane_ncc_inputs.py"
+    spec = importlib.util.spec_from_file_location("torch_plane_ncc_inputs", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def plane_ncc_work(args):
+    """(bytes, float64 operations, taps) the slanted-plane NCC needs for
+    these inputs (_plane_tap_sums' arguments): each input byte read once
+    and each output byte written once; 8 float64 fused multiply-adds (16
+    operations) a tap evaluated (a window stops at its first tap out of
+    bounds, and none runs where a tap's ray length is not above 0), 50 a
+    (k, y, x) for the reference's sums, 2 for its variance, 4 a valid
+    output."""
+    depths, dzx, dzy, jidx = args["depths"], args["dzx"], args["dzy"], args["jidx"]
+    K, H, W = depths.shape
+    lead = jidx.shape[0]
+    inputs = [args[k] for k in ("ref_img", "neigh_imgs", "T", "tvec", "hw", "jidx", "ray_z",
+                                "depths", "dzx", "dzy") if args[k] is not None]
+    nbytes = sum(t.numel() * t.element_size() for t in inputs) + lead * K * H * W * 5
+    ys, xs = mvs_patch._grid(H, W, depths.device)
+    Tg, tg = args["T"][jidx], args["tvec"][jidx]
+    hwg = None if args["hw"] is None else args["hw"][jidx]
+    offsets = mvs_patch.make_patch_offsets(args["filter_width"])
+    pos = torch.ones((K, H, W), dtype=torch.bool, device=depths.device)
+    for dy, dx in offsets:
+        pos &= (depths + dx * dzx + dy * dzy) > 0
+    alive = pos.expand(lead, K, H, W).clone()
+    taps = 0
+    for dy, dx in offsets:
+        taps += int(alive.sum())
+        z = (depths + dx * dzx + dy * dzy) * mvs_patch._shifted(args["ray_z"], dy, dx)
+        *_, inb = mvs_patch._warp_bilinear(args["neigh_imgs"], Tg, tg, z, xs + dx + 0.5,
+                                           ys + dy + 0.5, hwg)
+        alive &= inb
+    flops = 16 * taps + 50 * K * H * W + 2 * int(pos.sum()) + 4 * int(alive.sum())
+    return nbytes, flops, taps
+
+
+def phase_plane_ncc(dev):
+    """The slanted-plane NCC kernel against the plain tensor program on the
+    card, bit for bit, at the main path's forms, then both timed. Returns
+    each form's numbers."""
+    mod = plane_ncc_cases()
+    out = {}
+    for name, form in mod.MAIN.items():
+        args = mod.to_torch(mod.case(form, seed=1), dev)
+        before = plane_ncc_ops.launches
+        got = mvs_patch._plane_tap_sums(**args)
+        want = mvs_patch._plane_tap_sums_plain(**args)
+        torch.cuda.synchronize()
+        if plane_ncc_ops.launches - before != 1:
+            raise AssertionError(f"{name}: {plane_ncc_ops.launches - before} launches, expected 1")
+        if not (torch.equal(got[1], want[1])
+                and torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))):
+            raise AssertionError(f"plane NCC {name}: not bit-identical to the plain program")
+        nbytes, flops, taps = plane_ncc_work(args)
+        kernel = cuda_ms(lambda: mvs_patch._plane_tap_sums(**args), 20)
+        plain = cuda_ms(lambda: mvs_patch._plane_tap_sums_plain(**args), 2)
+        bound = 1e3 * max(nbytes / PEAK_BYTES, flops / PEAK_F64_FLOPS)
+        by = "bytes" if nbytes / PEAK_BYTES > flops / PEAK_F64_FLOPS else "float64 operations"
+        shape = tuple(got[0].shape)
+        print(f"  {name:<13} {shape}: bit-identical (valid {float(want[1].float().mean()):.3f}); "
+              f"kernel {kernel:.3f} ms, plain program {plain:.1f} ms; bound {bound:.4f} ms by {by} "
+              f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} G float64 operations, "
+              f"{taps / 1e6:.1f} M taps): {100 * bound / kernel:.2f}% of it", flush=True)
+        out[name] = dict(shape=list(shape), ms=kernel, plain_ms=plain, bound_ms=bound,
+                         bound_by=by, bytes=nbytes, f64_ops=flops, taps=taps)
+        del args, got, want
+    return out
 
 
 def load_scene_result(scene):
@@ -1175,8 +1256,14 @@ def phase_dmrecon_card_vs_cpu():
     (nr_recon_neighbors=3); everything else is Settings()'s default but
     for the solver's switches. The sweep solver runs at scale 1; the warp
     solvers, which take the CPU 10 s a view at scale 1 and 40-75 s with
-    exact NCC, run at scale 2, exact NCC for view 0 only."""
+    exact NCC, run at scale 2, exact NCC for view 0 only. Returns the
+    slanted-plane NCC kernel's launches in each solver's two card runs
+    (local view selection on, as by default): one a view in the sweep
+    solver's centre plane, 2 + rounds + 1 a view in the warp solver's
+    plane phase and acceptance, and more with exact NCC, whose every score
+    is a plane NCC."""
     base = WORK / "small"
+    launches = {}
     solvers = (("sweep", "sweep", dict(), 1, None),
                ("warp", "warp", dict(use_sweep=False), 2, None),
                ("warp, exact NCC", "warp", dict(use_sweep=False, exact_ncc=True), 2, {0}))
@@ -1185,6 +1272,7 @@ def phase_dmrecon_card_vs_cpu():
               flush=True)
         settings = MvsSettings(nr_recon_neighbors=3, **switches)
         scenes = {}
+        before = plane_ncc_ops.launches
         for name, dev in (("cuda", "cuda"), ("cuda, again", "cuda"), ("cpu", "cpu")):
             scene = base / f"dm_{name.replace(', ', '_')}"
             shutil.rmtree(scene, ignore_errors=True)
@@ -1200,6 +1288,16 @@ def phase_dmrecon_card_vs_cpu():
                 raise AssertionError(f"dmrecon took the {solvers_taken()} solver, not {want}")
             scenes[name] = scene
         n_views = check_embeddings(scenes.values(), level)
+        calls = plane_ncc_ops.launches - before
+        params = mvs_dmrecon._solver_params(settings)[0]
+        per_view = 1 if want == "sweep" else 2 + params["n_plane_rounds"] + 1
+        expect = 2 * n_views * per_view
+        print(f"  slanted-plane NCC kernel: {calls} launches in the two card runs ("
+              f"{'at least ' if params['exact'] else ''}{expect} expected)", flush=True)
+        if calls < expect or (calls != expect and not params["exact"]):
+            raise AssertionError(f"{label} solver: {calls} plane NCC launches, expected "
+                                 f"{expect}")
+        launches[label] = calls
         card = depth_maps(scenes["cuda"], f"depth-L{level}")
         again = depth_maps(scenes["cuda, again"], f"depth-L{level}")
         identical = set(card) == set(again) and all(np.array_equal(card[i], again[i]) for i in card)
@@ -1219,6 +1317,7 @@ def phase_dmrecon_card_vs_cpu():
         raise AssertionError("torch.argmax on the card does not return the first of tied maxima")
     for scene in base.glob("dm_*"):
         shutil.rmtree(scene, ignore_errors=True)  # sfm_cuda stays for phase 30
+    return launches
 
 
 def scene_planes(scene):
@@ -1304,10 +1403,12 @@ def phase_full_dmrecon():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
+    pncc = plane_ncc_ops.launches
     n = dmrecon.reconstruct_views(str(scene), scale=2, settings=MvsSettings(), verbose=False,
                                   device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    pncc = plane_ncc_ops.launches - pncc
     peak = torch.cuda.max_memory_allocated()
     t = dict(mvs_dmrecon.LAST_TIMINGS)
     fills = dmrecon.LAST_STATS["per_view_fills"]
@@ -1325,6 +1426,10 @@ def phase_full_dmrecon():
         raise AssertionError(f"dmrecon wrote {n} depth maps of {shapes}, expected {MAIN_VIEWS} of {expect}")
     if solvers_taken() != {"sweep"}:
         raise AssertionError(f"dmrecon took the {solvers_taken()} solver, not the sweep solver")
+    print(f"  slanted-plane NCC kernel: {pncc} launches (one a view in the centre plane)",
+          flush=True)
+    if pncc != n:
+        raise AssertionError(f"dmrecon launched the plane NCC kernel {pncc} times for {n} views")
     if not all(np.isfinite(m).all() for m in depth_maps(scene, "depth-L2").values()) \
             or dmrecon.LAST_STATS["depth_fill_min"] < FILL_FLOOR:
         raise AssertionError(f"dmrecon: a depth map is not finite, or a fill is below {FILL_FLOOR}")
@@ -1400,7 +1505,7 @@ def phase_full_dmrecon():
     shutil.copytree(scene, cpu_scene)
     card_view0 = depth_maps(scene, "depth-L2")[0]
     return dict(wall=wall, timings=t, peak=peak, busy_share=busy / pwall, phases=phases,
-                card_view0=card_view0)
+                card_view0=card_view0, plane_ncc_launches=pncc)
 
 
 def start_cpu_view0():
@@ -3120,7 +3225,7 @@ def main() -> int:
 
     phase("2. build")
     t0 = time.perf_counter()
-    logs = cuda_build.build(["top2", "pyramid"], force=True)
+    logs = cuda_build.build(["top2", "pyramid", "plane_ncc"], force=True)
     print(f"  built {sorted(logs)} in {time.perf_counter() - t0:.3f} s")
     for name, log in logs.items():
         for line in log.strip().splitlines():
@@ -3150,6 +3255,9 @@ def main() -> int:
     phase("3b. level-image kernels against the numpy path")
     pyr = phase_pyramid(dev)
 
+    phase("3c. slanted-plane NCC kernel against the plain program")
+    pncc = phase_plane_ncc(dev)
+
     phase("4. card against CPU, 4 views of 480x360")
     phase_card_vs_cpu()
 
@@ -3172,7 +3280,7 @@ def main() -> int:
     full_sfm = phase_full_sfm()
 
     phase("10. dmrecon with each solver, card against CPU, on phase 7's scene")
-    phase_dmrecon_card_vs_cpu()
+    pncc_phase10 = phase_dmrecon_card_vs_cpu()
 
     phase(f"11. dmrecon -s2, {MAIN_VIEWS} views of {MAIN_WIDTH}x{MAIN_HEIGHT} (depth maps of "
           f"{MAIN_WIDTH // 4}x{MAIN_HEIGHT // 4})")
@@ -3281,6 +3389,9 @@ def main() -> int:
                                      "featurerecon": feat["split_launches"]}},
         {"name": "pyramid_level", "route": "cuda", "source": "mve_tpu_torch/csrc/pyramid.cu",
          "replaces": None, "launches": pyr_launches, "bit_identical": True, **pyr},
+        {"name": "plane_ncc", "route": "cuda", "source": "mve_tpu_torch/csrc/plane_ncc.cu",
+         "replaces": None, "launches": full_dm["plane_ncc_launches"],
+         "launches_phase10": pncc_phase10, "bit_identical": True, "forms": pncc},
     ]
     print()
     print(smi)

@@ -27,13 +27,17 @@ float32 reciprocal. None of it depends on the device: the card follows
 the same order, so that card and CPU stay within chip_smoke.py's limits
 (with torch.cumsum and plain float32 multiply-adds on the card a view
 takes under half the time, but its depths move from the CPU's by about
-as much as the solver's own error; PERF.md).
+as much as the solver's own error; PERF.md). On the card the slanted-
+plane tap loop (_plane_tap_sums) is one kernel, csrc/plane_ncc.cu, that
+keeps this order to the bit.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ..ops import plane_ncc
 
 _SCAN_BLOCK = 16
 
@@ -328,30 +332,46 @@ def ncc_score(ref_img, neigh_imgs, T, tvec, ray_z, depth,
     return _combine_topk(ncc, valid, top_k)
 
 
-def _plane_tap_sums(ref_img, neigh_imgs, Tg, tg, gather, ray_z,
-                    depths, dzx, dzy, filter_width: int, lead_shape, hw=None):
-    """Shared tap loop for slanted-patch (plane) NCC.
+def _plane_tap_sums(ref_img, neigh_imgs, T, tvec, hw, jidx, ray_z,
+                    depths, dzx, dzy, filter_width: int):
+    """Slanted-patch (plane) NCC of each candidate plane in the views jidx.
+
+    T: (J, 3, 3), tvec: (J, 3) reprojection operators; hw: None, or (J, 2)
+    the neighbors' own sizes (_warp_bilinear); jidx: an integer view index
+    that broadcasts to (lead, K, H, W) with a lead dim of its own, e.g.
+    arange(J)[:, None, None, None] (every view) or sel[:, None] (per-pixel
+    selected views); depths/dzx/dzy: (K, H, W) candidate plane stacks.
+    Returns (ncc, valid), each (lead, K, H, W). A CUDA tensor runs the
+    kernel csrc/plane_ncc.cu (ops/plane_ncc.py), bit-identical to the
+    plain tensor program _plane_tap_sums_plain, which a CPU tensor runs.
+    """
+    if depths.is_cuda:
+        return plane_ncc.plane_ncc(ref_img, neigh_imgs, T, tvec, hw, jidx, ray_z,
+                                   depths, dzx, dzy, filter_width,
+                                   _recip(filter_width * filter_width))
+    return _plane_tap_sums_plain(ref_img, neigh_imgs, T, tvec, hw, jidx, ray_z,
+                                 depths, dzx, dzy, filter_width)
+
+
+def _plane_tap_sums_plain(ref_img, neigh_imgs, T, tvec, hw, jidx, ray_z,
+                          depths, dzx, dzy, filter_width: int):
+    """_plane_tap_sums as one tensor program over the (lead, K, H, W) stack.
 
     The patch plane is the reference's (depth, dzI, dzJ) parametrization
     (patch_sampler.cc computePatchPoints): the ray length at patch tap
     (di, dj) is depth + di*dzI + dj*dzJ, the 3D point lies on that tap's
     own viewing ray. Each tap warps into the neighbor views with its own
     plane-induced z-depth.
-
-    Tg/tg: broadcastable reprojection operators with leading dims
-    lead_shape (e.g. (S, 1) for selected views x candidates or (J, 1)).
-    gather(v0i, u0i): bilinear corner gather returning neighbor values.
-    depths/dzx/dzy: (K, H, W) candidate plane stacks. hw: the neighbors'
-    own sizes, broadcastable as Tg (_warp_bilinear).
-    Returns per-(lead..., K, H, W) NCC plus validity.
     """
     K, H, W = depths.shape
     fw = filter_width
     n_taps = fw * fw
     dev = depths.device
     ys, xs = _grid(H, W, dev)
+    Tg, tg = T[jidx], tvec[jidx]
+    hwg = None if hw is None else hw[jidx]
 
-    shape = tuple(lead_shape) + (K, H, W)
+    shape = (jidx.shape[0], K, H, W)
     sum_r = torch.zeros((H, W), device=dev)
     sum_rr = torch.zeros((H, W), device=dev)
     sum_n = torch.zeros(shape, device=dev)
@@ -367,9 +387,9 @@ def _plane_tap_sums(ref_img, neigh_imgs, Tg, tg, gather, ray_z,
         L = depths + dx * dzx + dy * dzy      # (K, H, W) tap ray length
         pos_ok = L > 0.0                      # patch_sampler.cc:285-288
         u0i, v0i, fu, fv, inb = _warp_bilinear(
-            neigh_imgs, Tg, tg, L * rz, xs + dx + 0.5, ys + dy + 0.5, hw)
+            neigh_imgs, Tg, tg, L * rz, xs + dx + 0.5, ys + dy + 0.5, hwg)
         valid = valid & inb & pos_ok
-        nv = _bilinear(gather, v0i, u0i, fu, fv)
+        nv = _bilinear(lambda v, u: _gather_views(neigh_imgs, jidx, v, u), v0i, u0i, fu, fv)
         sum_n = sum_n + nv
         sum_nn = _fma(nv, nv, sum_nn)
         sum_rn = _fma(rv, nv, sum_rn)
@@ -390,12 +410,9 @@ def ncc_score_plane(ref_img, neigh_imgs, T, tvec, ray_z, depths, dzx, dzy,
     depths/dzx/dzy: (K, H, W) plane candidates (ray length + per-pixel
     ray-length gradients, the reference's depth/dzI/dzJ). Returns
     (score (K, H, W), kth (K, H, W))."""
-    J = neigh_imgs.shape[0]
-    jidx = torch.arange(J, device=depths.device)[:, None, None, None]
-    ncc, valid = _plane_tap_sums(
-        ref_img, neigh_imgs, T[:, None, None, None], tvec[:, None, None, None],
-        lambda v, u: _gather_views(neigh_imgs, jidx, v, u), ray_z, depths, dzx, dzy,
-        filter_width, (J,))
+    jidx = torch.arange(neigh_imgs.shape[0], device=depths.device)[:, None, None, None]
+    ncc, valid = _plane_tap_sums(ref_img, neigh_imgs, T, tvec, None, jidx, ray_z,
+                                 depths, dzx, dzy, filter_width)
     return _combine_topk(ncc, valid, top_k)
 
 
@@ -408,13 +425,8 @@ def ncc_score_plane_sel(ref_img, neigh_imgs, T, tvec, ray_z, depths,
     neigh_hw: None, or (J, 2) each neighbor's own (height, width) in the
     padded neigh_imgs (_warp_bilinear).
     Returns (score (K, H, W), kth (K, H, W)) like ncc_score_box_sel."""
-    S = sel.shape[0]
-    jidx = sel[:, None]
-    ncc, valid = _plane_tap_sums(
-        ref_img, neigh_imgs, T[sel][:, None], tvec[sel][:, None],
-        lambda v, u: _gather_views(neigh_imgs, jidx, v, u), ray_z,
-        depths, dzx, dzy, filter_width, (S,),
-        None if neigh_hw is None else neigh_hw[sel][:, None])
+    ncc, valid = _plane_tap_sums(ref_img, neigh_imgs, T, tvec, neigh_hw, sel[:, None], ray_z,
+                                 depths, dzx, dzy, filter_width)
     ok = valid & sel_valid[:, None]
     return _combine_sel(torch.where(ok, ncc, -1.0), ok)
 

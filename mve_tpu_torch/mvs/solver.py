@@ -52,12 +52,9 @@ def _ncc_box_sel(ref, rstats, neigh, T, tvec, ray_z, depths, sel, sel_valid, fw,
 
 def _ncc_plane_all(ref, neigh, nvalid, T, tvec, ray_z, depths, dzx, dzy, fw, k,
                    neigh_hw=None):
-    J = neigh.shape[0]
-    jidx = torch.arange(J, device=ref.device)[:, None, None, None]
-    ncc, valid = _plane_tap_sums(
-        ref, neigh, T[:, None, None, None], tvec[:, None, None, None],
-        lambda v, u: _gather_views(neigh, jidx, v, u), ray_z, depths, dzx, dzy, fw, (J,),
-        None if neigh_hw is None else neigh_hw[:, None, None, None])
+    jidx = torch.arange(neigh.shape[0], device=ref.device)[:, None, None, None]
+    ncc, valid = _plane_tap_sums(ref, neigh, T, tvec, neigh_hw, jidx, ray_z,
+                                 depths, dzx, dzy, fw)
     ok = valid & nvalid[:, None, None, None]
     return _combine_topk(torch.where(ok, ncc, -1.0), ok, k)
 

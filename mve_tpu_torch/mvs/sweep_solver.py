@@ -41,7 +41,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .patch import (_box_sum, _combine_sel, _combine_topk, _corner, _fma, _gather_views,
+from .patch import (_box_sum, _combine_sel, _combine_topk, _corner, _fma,
                     _index, _plane_tap_sums, _recip)
 from .rounds import (_accept, _local_view_selection, _ncc_box_all, _pick, _plane_rounds,
                      _propagate, _ref_box_stats, _refine, _reselect_with_fallback, _roll,
@@ -486,11 +486,6 @@ def _solve_view_sweep(ref, neigh, nvalid, T, tvec, ray_z,
     # converged center plane, re-select views on THOSE scores, and accept
     # on the better of the two scores.
     if use_local:
-        jidx_all = torch.arange(J, device=dev)[:, None, None, None]
-
-        def gather_all(v0i, u0i):
-            return _gather_views(neigh, jidx_all, v0i, u0i)
-
         def select_and_mean(ncc_p, dd):
             """performVS-on-propagated-pixels selection + acceptance
             mean: any positive-NCC diverse view qualifies (min_ncc gates
@@ -525,9 +520,8 @@ def _solve_view_sweep(ref, neigh, nvalid, T, tvec, ray_z,
         # ONE final CENTER-PLANE acceptance pass at the converged plane
         # (patch_sampler.cc getFastNCC).
         ncc_pl, valid_pl = _plane_tap_sums(
-            ref, neigh, T[:, None, None, None], tvec[:, None, None, None],
-            gather_all, ray_z, bd[None], bzx[None], bzy[None], fw, (J,),
-            None if neigh_hw is None else neigh_hw[:, None, None, None])
+            ref, neigh, T, tvec, neigh_hw, torch.arange(J, device=dev)[:, None, None, None],
+            ray_z, bd[None], bzx[None], bzy[None], fw)
         ncc_pl = torch.where(valid_pl & nvalid[:, None, None, None], ncc_pl, -1.0)[:, 0]
         bs = torch.maximum(bs, select_and_mean(ncc_pl, bd))
 

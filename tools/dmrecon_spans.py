@@ -7,6 +7,8 @@ spans of its window as tables.
 Runs mvebench's traced run (`--trace 1`) in this process, prints its
 result line, then writes <out>/<cell>-<seed>.json and prints:
 - each span's self time (its time less its children's) per view;
+- each counter per view, by the span it was counted in (so
+  plane_ncc_px per solver phase: the outputs of the plane NCC kernel);
 - the device time of each solver phase per view (the mvs.solve.<phase>
   spans' CUDA events); where the mvs.solve spans count views of the warp
   solver (views_warp), also each solver's phases over that solver's
